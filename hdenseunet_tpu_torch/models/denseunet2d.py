@@ -1,0 +1,98 @@
+"""2D DenseUNet-167 (counterpart of hdenseunet_tpu/models/denseunet2d.py).
+
+DenseNet-161 encoder + 5-stage upsampling decoder, the current (no long skip
+connections) variant as the hybrid embeds it: every encoder BN frozen, no
+decoder dropout. Layer names are the reference graph's, byte for byte.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import layers as L
+
+EPS_ENCODER = 1.1e-5  # reference densenet.py:25
+ENC_BLOCKS = (6, 12, 36, 24)  # DenseNet-161 (densenet.py:41)
+GROWTH_RATE = 48
+INITIAL_FILTERS = 96
+DECODER_WIDTHS = (768, 384, 96, 96, 64)
+
+# 'full' is the reference DenseNet-161 layout; 'tiny' a same-wiring test size.
+PRESETS = {
+    "full": {},
+    "tiny": {
+        "blocks": (2, 2, 2, 2),
+        "growth": 8,
+        "decoder_widths": (32, 32, 16, 16, 16),
+    },
+}
+
+
+class DenseUNet2D(nn.ModuleDict):
+    """The model is the dict of its reference-named layers, plus forward."""
+
+    def __init__(
+        self, *, in_channels=3, num_classes=3, reduction=0.5,
+        blocks=ENC_BLOCKS, growth=GROWTH_RATE, decoder_widths=DECODER_WIDTHS,
+        device=None,
+    ):
+        super().__init__()
+        self.blocks = tuple(blocks)
+        compression = 1.0 - reduction
+
+        def conv(name, cin, cout, k, **kw):
+            self[name] = L.Conv(cin, cout, k, ndim=2, device=device, **kw)
+
+        def bn_scale(base, c):
+            self[base + "_bn"] = L.BatchNorm(c, eps=EPS_ENCODER, device=device)
+            self[base + "_scale"] = L.Scale(c, device=device)
+
+        conv("conv1", in_channels, INITIAL_FILTERS, 7, stride=2, padding=3, use_bias=False)
+        bn_scale("conv1", INITIAL_FILTERS)
+        nb_filter = INITIAL_FILTERS
+        for block_idx, nb_layers in enumerate(self.blocks):
+            stage = block_idx + 2
+            for branch in range(1, nb_layers + 1):
+                base = f"conv{stage}_{branch}"
+                bn_scale(base + "_x1", nb_filter)
+                conv(base + "_x1", nb_filter, growth * 4, 1, padding="valid", use_bias=False)
+                bn_scale(base + "_x2", growth * 4)
+                conv(base + "_x2", growth * 4, growth, 3, padding=1, use_bias=False)
+                nb_filter += growth
+            bn_scale(f"conv{stage}_blk", nb_filter)
+            if block_idx < len(self.blocks) - 1:  # transition
+                out = int(nb_filter * compression)
+                conv(f"conv{stage}_blk", nb_filter, out, 1, padding="valid", use_bias=False)
+                nb_filter = out
+        cin = nb_filter
+        for idx, width in enumerate(decoder_widths):
+            conv(f"conv_up{idx}", cin, width, 3, padding="same", init="normal")
+            self[f"bn_up{idx}"] = L.BatchNorm(width, eps=1e-3, device=device)
+            cin = width
+        conv("dense167classifer", cin, num_classes, 1, padding="same", init="normal")
+
+    def _bsr(self, x, base):
+        return L.bn_scale_relu(x, self[base + "_bn"], self[base + "_scale"])
+
+    def forward(self, x):
+        """x: (B, H, W, 3), H and W divisible by 32 ->
+        (ac_up4 features (B, H, W, F), logits (B, H, W, num_classes))."""
+        assert x.dim() == 4 and x.shape[1] % 32 == 0 and x.shape[2] % 32 == 0, x.shape
+        x = L.channels_last(x.movedim(-1, 1))
+        x = self._bsr(self["conv1"](x), "conv1")
+        x = L.max_pool(x, 3, 2, pad=1)
+        for block_idx, nb_layers in enumerate(self.blocks):
+            stage = block_idx + 2
+            for branch in range(1, nb_layers + 1):  # dense block (densenet.py:103-193)
+                base = f"conv{stage}_{branch}"
+                out = self[base + "_x1"](self._bsr(x, base + "_x1"))
+                out = self[base + "_x2"](self._bsr(out, base + "_x2"))
+                x = L.channels_last(torch.cat([x, out], dim=1))
+            x = self._bsr(x, f"conv{stage}_blk")
+            if block_idx < len(self.blocks) - 1:  # transition (densenet.py:140-166)
+                x = L.avg_pool(self[f"conv{stage}_blk"](x), 2, 2)
+        for idx in range(5):  # UpSample2x -> Conv3x3 -> BN -> ReLU
+            x = L.upsample_nearest(x, 2)
+            x = torch.relu(self[f"bn_up{idx}"](self[f"conv_up{idx}"](x)))
+        logits = self["dense167classifer"](x)
+        return x.movedim(1, -1), logits.movedim(1, -1)

@@ -1,0 +1,94 @@
+"""H-DenseUNet: hybrid 2D/3D assembly with HFF (hybrid feature fusion).
+
+Counterpart of hdenseunet_tpu/models/hybrid.py. Each z slice's 3-slice stack
+goes through the 2D DenseUNet; its logits, amplified x250, join the raw
+volume as the 4-channel input of the 3D DenseUNet; the 3D feature map plus
+the z-stacked 2D features go through the HFF head (hybridnet.py:379-423).
+Both hybrid archs freeze every 2D BN; at inference the archs differ only in
+the head's dropout rate, which is the identity here.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import denseunet2d, denseunet3d
+from . import layers as L
+
+LOGIT_AMPLIFICATION = 250.0  # reference hybridnet.py:409
+HEAD_WIDTH = 64
+
+
+def stack_adjacent_slices(vol):
+    """(B, H, W, D, 1) volume -> (B*D, H, W, 3) pseudo-batch of 3-slice stacks
+    [z-1, z, z+1] with edge replication, z-major per batch element."""
+    b, h, w, d = vol.shape[:4]
+    x = vol[..., 0]
+    idx = torch.arange(d, device=vol.device)
+    prev = x[..., (idx - 1).clamp(min=0)]
+    nxt = x[..., (idx + 1).clamp(max=d - 1)]
+    stacks = torch.stack([prev, x, nxt], dim=-1)  # (B,H,W,D,3)
+    return stacks.permute(0, 3, 1, 2, 4).reshape(b * d, h, w, 3)
+
+
+def unstack_to_volume(y, batch, depth):
+    """(B*D, H, W, C) -> (B, H, W, D, C), inverse of the pseudo-batch fold."""
+    bd, h, w, c = y.shape
+    assert bd == batch * depth, (y.shape, batch, depth)
+    return y.reshape(batch, depth, h, w, c).permute(0, 2, 3, 1, 4)
+
+
+class HFFHead(nn.ModuleDict):
+    """add -> Conv3D(64) -> Dropout -> BN -> ReLU -> 1x1x1 Conv '2d3dclassifer'
+    (hybridnet.py:414-419), the 'hwdc' form."""
+
+    def __init__(self, width, *, num_classes=3, device=None):
+        super().__init__()
+        self["fianl_conv"] = L.Conv(width, HEAD_WIDTH, 3, ndim=3, device=device)  # [sic]
+        self["final_bn"] = L.BatchNorm(HEAD_WIDTH, eps=1e-3, device=device)
+        self["2d3dclassifer"] = L.Conv(HEAD_WIDTH, num_classes, 1, ndim=3, device=device)
+
+    def forward(self, feat3d, fea2d, *, arch: str = "end2end"):
+        """feat3d, fea2d: (B, H, W, D, F) -> logits (B, H, W, D, num_classes)."""
+        fused = L.channels_last((feat3d + fea2d).movedim(-1, 1))  # HFF (hybridnet.py:414)
+        f = self["fianl_conv"](fused)
+        f = L.dropout(f, 0.3 if arch == "end2end" else 0.1)
+        f = torch.relu(self["final_bn"](f))
+        return self["2d3dclassifer"](f).movedim(1, -1)
+
+
+class HDenseUNet(nn.Module):
+    """The hybrid network; ``forward`` is the counterpart of ``hybrid.apply``."""
+
+    def __init__(self, *, preset: str = "full", num_classes: int = 3, device=None):
+        super().__init__()
+        self.preset = preset
+        kw2d = dict(denseunet2d.PRESETS[preset])
+        kw3d = dict(denseunet3d.PRESETS[preset])
+        self.net2d = denseunet2d.DenseUNet2D(num_classes=num_classes, device=device, **kw2d)
+        self.net3d = denseunet3d.DenseUNet3D(
+            in_channels=1 + num_classes, num_classes=num_classes, device=device, **kw3d
+        )
+        width2d = kw2d.get("decoder_widths", denseunet2d.DECODER_WIDTHS)[-1]
+        width3d = kw3d.get("decoder_widths", denseunet3d.DECODER_WIDTHS)[-1]
+        assert width2d == width3d, (width2d, width3d)
+        self.head = HFFHead(width3d, num_classes=num_classes, device=device)
+
+    def forward(self, vol, *, arch: str = "end2end"):
+        """vol: (B, H, W, D, 1); H, W divisible by 32; D by 4 ->
+        logits (B, H, W, D, num_classes)."""
+        assert arch in ("end2end", "3dpart"), arch
+        b, _, _, d = vol.shape[:4]
+        feat2d, logits2d = self.net2d(stack_adjacent_slices(vol))
+        return self.fuse(
+            vol, unstack_to_volume(logits2d, b, d), unstack_to_volume(feat2d, b, d), arch=arch
+        )
+
+    def fuse(self, vol, res2d, fea2d, *, arch: str = "end2end"):
+        """The hybrid after its 2D branch: x250 fusion -> 3D DenseUNet -> HFF.
+
+        vol (B,H,W,D,1), res2d (B,H,W,D,C) 2D logits, fea2d (B,H,W,D,F) 2D
+        features -> logits (B,H,W,D,C)."""
+        input3d = torch.cat([vol, res2d * LOGIT_AMPLIFICATION], dim=-1)
+        feat3d, _ = self.net3d(input3d)
+        return self.head(feat3d, fea2d, arch=arch)

@@ -1,0 +1,288 @@
+"""The port's serving path against the JAX package on CPU: window grid,
+scorer probabilities, labelmasks and the end-to-end segment.
+
+Tiny-preset weights come from the JAX ``hybrid.init`` and reach the port
+through the parameter bridge. Thresholds for the labelmap tests are taken
+from quantiles of JAX's own probabilities, so liver and tumor voxels both
+occur (random tiny weights stay below the shipped 0.5 / 0.9).
+"""
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from hdenseunet_tpu.core.config import Config as JConfig, InferConfig as JInferConfig
+from hdenseunet_tpu.infer import device_pipeline as JD
+from hdenseunet_tpu.infer import sliding_window as JS
+from hdenseunet_tpu.infer.predictor import VolumePredictor as JVolumePredictor
+from hdenseunet_tpu.models import hybrid as JH
+from hdenseunet_tpu_torch import _reuse
+from hdenseunet_tpu_torch.core.params import from_numpy
+from hdenseunet_tpu_torch.infer import device_pipeline as TD
+from hdenseunet_tpu_torch.infer.predictor import VolumePredictor, predict_directory
+from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
+
+REPO = Path(__file__).resolve().parent.parent
+# float32 on both sides; convs sum in another order and the JAX scorer runs
+# its shipped space-to-depth stem (equal to the direct stem up to summation
+# order): probabilities in [0, 1] agree to a few fp32 ulps per layer
+PROB_TOL = 1e-5
+LIVER, TUMOR = 1, 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    params, state = JH.init(jax.random.key(0), input_size=32, input_cols=8, batch=1, preset="tiny")
+    return params, state
+
+
+def _port_model(tiny):
+    return from_numpy(HDenseUNet(preset="tiny"), *tiny)
+
+
+def _volume(shape, seed):
+    """Integer HU in the preprocessing window, mean-subtracted like serving."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(-200, 251, shape).astype(np.float32) - 48.0
+
+
+# --------------------------------------------------------------------------
+# grid helpers and wire packing: copies pinned to the originals
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("z", [8, 9, 28, 40, 97, 200])
+def test_grid_helpers_match_jax(z):
+    cfg = JInferConfig()
+    for lo in range(0, z, max(1, z // 7)):
+        for hi in range(lo, z, max(1, z // 5)):
+            starts = TD.window_starts(z, lo, hi, cfg)
+            assert starts == JS.window_starts(z, lo, hi, cfg)
+            rel = [s - min(starts) for s in starts]
+            for wb in (1, 3, 8):
+                zp = -(-max(z, 8) // 16) * 16
+                assert TD.plan_windows(zp, cfg) == JD.plan_windows(zp, cfg)
+                cap = -(-TD.plan_windows(zp, cfg) // wb) + 1
+                for got, want in zip(
+                    TD.make_grid_structured(rel, wb, cfg.window_stride, max_runs=cap),
+                    JD.make_grid_structured(rel, wb, cfg.window_stride, max_runs=cap),
+                ):
+                    np.testing.assert_array_equal(got, want)
+                n = -(-len(set(rel)) // wb)
+                for got, want in zip(TD.make_grid(rel, wb, n), JD.make_grid(rel, wb, n)):
+                    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(512, 512, 96), (64, 64, 28), (48, 40, 28), (33, 65, 200)])
+def test_plan_matches_jax(shape):
+    cfg = JInferConfig()
+    _, _, z = shape
+    jax_sc = JD.DeviceVolumeScorer(None, None, cfg)
+    port_sc = TD.DeviceVolumeScorer(HDenseUNet(preset="tiny", device="meta"), cfg, device="meta")
+    for lo, hi in [(0, z - 1), (z // 4, z // 2), (z - 3, z - 1)]:
+        want = jax_sc.plan(shape, lo, hi)
+        got = port_sc.plan(shape, lo, hi)
+        for key in ("z_lo", "z", "zp", "xp", "yp", "wb"):
+            assert got[key] == want[key], key
+        np.testing.assert_array_equal(got["starts"], want["starts"])
+        np.testing.assert_array_equal(got["weights"], want["weights"])
+
+
+def test_label_packing_matches_jax():
+    rng = np.random.default_rng(11)
+    score = rng.uniform(size=(9, 7, 16, 3)).astype(np.float32)
+    want = np.asarray(JD._pack_labels(score, 0.4, 0.7))
+    got = TD.pack_labels(torch.from_numpy(score), 0.4, 0.7)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for pack_z in (None, 12):
+        packed = TD.pack2bits(got, pack_z=pack_z)
+        np.testing.assert_array_equal(packed.numpy(), np.asarray(JD._pack2bits(want, pack_z=pack_z)))
+        np.testing.assert_array_equal(TD.unpack2bits(packed.numpy()), want[:, :, :pack_z])
+        np.testing.assert_array_equal(
+            TD.unpack2bits(packed.numpy()), JD._unpack2bits(np.asarray(packed.numpy()))
+        )
+
+
+@pytest.mark.parametrize("wb,cols,stride", [(8, 8, 2), (3, 8, 2), (4, 6, 1)])
+def test_assembly_map_picks_each_windows_stacks(wb, cols, stride):
+    """Row asm[j, p] of a run's 2D batch is the stack window j needs at
+    position p: interior rows are centred on s0 + stride*j + p, edge rows
+    are the window's own replicated edges."""
+    ni = (wb - 1) * stride + cols - 2
+    asm = TD.assembly_map(wb, cols, stride)
+    for j in range(wb):
+        assert asm[j, 0] == ni + j and asm[j, cols - 1] == ni + wb + j
+        for p in range(1, cols - 1):
+            assert asm[j, p] + 1 == stride * j + p  # interior row r is centre s0+1+r
+
+
+# --------------------------------------------------------------------------
+# scorer and segment against the JAX package
+# --------------------------------------------------------------------------
+
+
+def _ext_mask(shape):
+    ext = np.zeros(shape, np.int16)
+    ext[8:56, 8:36, 6:22] = 1
+    ext[20:30, 12:20, 10:14] = 2  # tumor label merges into the mask
+    return ext
+
+
+@pytest.fixture(scope="module")
+def jax_probs(tiny):
+    """JAX scorer probabilities per test volume shape (shipped InferConfig),
+    over the z range the external liver mask gives."""
+    scorer = JD.DeviceVolumeScorer(*tiny, JInferConfig(), preset="tiny")
+    out = {}
+    for shape in [(64, 64, 28), (48, 40, 28)]:
+        vol = _volume(shape, seed=sum(shape))
+        _, lo, hi = _reuse.postprocess.liver_mask_extent(_ext_mask(shape))
+        out[shape] = (vol, lo, hi, np.asarray(scorer.score(vol, lo, hi)))
+    return out
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 28), (48, 40, 28)])
+def test_scorer_probabilities_match_jax(tiny, jax_probs, shape):
+    vol, lo, hi, want = jax_probs[shape]
+    scorer = TD.DeviceVolumeScorer(_port_model(tiny), _reuse.InferConfig(), device="cpu")
+    got = scorer.score(vol, lo, hi)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape + (3,)
+    np.testing.assert_allclose(got.numpy(), want, atol=PROB_TOL, rtol=0)
+
+
+def _threshold_near(values, q, tol):
+    """A threshold near quantile q of ``values`` with none of them within tol."""
+    v = np.unique(values)
+    k = int(q * (len(v) - 1))
+    while v[k + 1] - v[k] <= 2 * tol:
+        k += 1
+    return float((v[k] + v[k + 1]) / 2)
+
+
+def _thresholds(probs):
+    scored = probs[..., 0] > 0  # outside the scored z range all channels are 0
+    return (
+        _threshold_near(probs[..., LIVER][scored], 0.6, PROB_TOL),
+        _threshold_near(probs[..., TUMOR][scored], 0.9, PROB_TOL),
+    )
+
+
+def _near_threshold(probs, thresholds):
+    return sum(
+        int((np.abs(probs[..., ch] - t) <= PROB_TOL).sum())
+        for ch, t in zip((LIVER, TUMOR), thresholds)
+    )
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 28), (48, 40, 28)])
+def test_labelmask_byte_identical_to_jax(tiny, jax_probs, shape):
+    vol, lo, hi, probs = jax_probs[shape]
+    liver_t, tumor_t = _thresholds(probs)
+    assert _near_threshold(probs, (liver_t, tumor_t)) == 0
+    jcfg = JInferConfig(thres_liver=liver_t, thres_tumor=tumor_t)
+    pcfg = _reuse.InferConfig(thres_liver=liver_t, thres_tumor=tumor_t)
+    want = JD.DeviceVolumeScorer(*tiny, jcfg, preset="tiny").labelmask(vol, lo, hi)
+    got = TD.DeviceVolumeScorer(_port_model(tiny), pcfg, device="cpu").labelmask(vol, lo, hi)
+    assert got.dtype == np.uint8 and got.shape == shape
+    assert (got == 1).any() and (got == 3).any()  # liver-only and tumor voxels
+    np.testing.assert_array_equal(got, want)
+
+
+def _configs(thresholds):
+    jcfg = JConfig()
+    jcfg.model.preset = "tiny"
+    jcfg.infer = dataclasses.replace(jcfg.infer, thres_liver=thresholds[0], thres_tumor=thresholds[1])
+    pcfg = _reuse.Config()
+    pcfg.model.preset = "tiny"
+    pcfg.infer = dataclasses.replace(pcfg.infer, thres_liver=thresholds[0], thres_tumor=thresholds[1])
+    return jcfg, pcfg
+
+
+@pytest.fixture(scope="module")
+def segment_case(tiny, jax_probs):
+    vol, _, _, probs = jax_probs[(64, 64, 28)]  # the z range segment() derives
+    thresholds = _thresholds(probs)
+    assert _near_threshold(probs, thresholds) == 0
+    jcfg, pcfg = _configs(thresholds)
+    return vol + 48.0, _ext_mask(vol.shape), jcfg, pcfg, JVolumePredictor(*tiny, jcfg)
+
+
+def test_segment_byte_identical_to_jax(tiny, segment_case):
+    vol, ext, _, pcfg, jax_vp = segment_case
+    want = jax_vp.segment(vol, ext)
+    got = VolumePredictor(_port_model(tiny), pcfg, device="cpu").segment(vol, ext)
+    assert got.dtype == np.uint8 and got.shape == vol.shape
+    assert (got == 1).any() and (got == 2).any()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_predict_directory_matches_jax_segment(tiny, segment_case, tmp_path):
+    vol0, ext, _, pcfg, jax_vp = segment_case
+    nifti = _reuse.nifti
+    data_dir, mask_dir, out_dir = tmp_path / "d", tmp_path / "m", tmp_path / "o"
+    data_dir.mkdir(), mask_dir.mkdir()
+    vols = [vol0, _volume(vol0.shape, seed=5) + 48.0]
+    for i, vol in enumerate(vols):
+        nifti.write(data_dir / f"test-volume-{i}.nii", vol)
+        nifti.write(mask_dir / f"test-volume-{i}-ori.nii", ext)
+    times = predict_directory(
+        _port_model(tiny), pcfg, data_dir=data_dir, liver_mask_dir=mask_dir,
+        save_dir=out_dir, num_volumes=2, device="cpu", log=lambda *a: None,
+    )
+    assert len(times) == 2
+    for i, vol in enumerate(vols):
+        got, _ = nifti.read(out_dir / f"test-segmentation-{i}.nii")
+        np.testing.assert_array_equal(np.asarray(got), jax_vp.segment(vol, ext), err_msg=f"vol {i}")
+
+
+@pytest.mark.parametrize(
+    "field,value",
+    [
+        ("shared_2d", True), ("dedup_2d", False), ("device_resident", False),
+        ("device_postprocess", True), ("wire_bits", 8),
+    ],
+)
+def test_unported_serving_options_raise(field, value):
+    cfg = _reuse.Config()
+    cfg.model.preset = "tiny"
+    cfg.infer = dataclasses.replace(cfg.infer, **{field: value})
+    with pytest.raises(NotImplementedError):
+        VolumePredictor(HDenseUNet(preset="tiny", device="meta"), cfg, device="meta")
+
+
+def test_reused_files_are_the_jax_packages_own():
+    assert _reuse.config.__file__ == str(REPO / "hdenseunet_tpu" / "core" / "config.py")
+    assert _reuse.postprocess.__file__ == str(REPO / "hdenseunet_tpu" / "infer" / "postprocess.py")
+    assert _reuse.nifti.__file__ == str(REPO / "hdenseunet_tpu" / "data" / "nifti.py")
+    assert dataclasses.asdict(_reuse.Config()) == dataclasses.asdict(JConfig())
+
+
+def test_port_imports_no_jax():
+    """Every module of the port loads without JAX. A subprocess, because this
+    test process imported JAX already (tests/conftest.py)."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in (REPO / "hdenseunet_tpu_torch").rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"mods = [importlib.import_module(m) for m in {modules!r}]\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == len(modules) >= 15
