@@ -3,20 +3,28 @@
 
     python3 chip_smoke.py
 
-Phases, one line of output each (the script catches nothing; any failure
-exits non-zero):
+Phases, one line of output each or more (the script catches nothing; any
+failure exits non-zero):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
    raises without a card;
-2. build of the port's CUDA kernels from csrc/;
-3. K1 (affine_relu) against its plain PyTorch version at the serving path's
-   shapes, bf16 and fp32, on both its vector and scalar paths, with times;
-4. the main path: VolumePredictor.segment on two synthetic 512x512x96 CT
-   volumes, full-preset H-DenseUNet in bfloat16 with seeded random weights,
-   counting K1 launches;
-5. model-level check of the kernel path: the tiny-preset scorer in float32
-   on the CPU (plain path) and on the card (K1 path) agree;
+2. build of the port's CUDA kernels from csrc/ (one nvcc per source);
+3. every kernel against its plain PyTorch version on the card, with its
+   time, the plain version's and its bound: K1 (affine_relu) at the serving
+   shapes, K1's backward at the end2end training shapes, K2 (weighted CE)
+   forward and backward at the training stages' row counts;
+4. the serving path: VolumePredictor.segment on two synthetic 512x512x96 CT
+   volumes, full-preset H-DenseUNet in bfloat16 with seeded random weights;
+5. the training path: ``train`` for 4 end2end steps at full width (global
+   batch 8 of 224x224x8 sub-volumes, bfloat16, remat), then 4 steps of the
+   2D stage at bench.py's configuration (batch 8 of 224x224 slabs);
+6. model-level checks of the kernel paths: the tiny-preset scorer, and one
+   tiny end2end train step, in float32 on the CPU (plain versions) and on
+   the card (kernels), TF32 off;
 then a JSON line describing the kernels, and the last line
 {"ok": true, "device": {...}}.
+
+Each path of phases 4-5 runs with every launch counter set to 0 just before
+it and read just after, and fails if a kernel of that path did not launch.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import copy
 import json
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -38,6 +47,22 @@ ULP_FP32 = 2.0**-23
 # CPU float32 vs cuDNN float32 (TF32 off): the same arithmetic summed in
 # another order through ~60 conv layers, probabilities in [0, 1]
 MODEL_TOL = 1e-4
+# One tiny end2end step, card against CPU, float32: each tensor's update
+# within 5e-2 of its own norm, after one ulp of the parameter per element
+# (an update is read as the difference of two float32 parameters) and 1e-9
+# (a conv bias in front of a live BN has a zero gradient in exact
+# arithmetic). At 32x32x8 and batch 2 the hybrid's float32 gradients hang
+# on summation order: on the CPU, two steps of the port that differ only in
+# the convs' memory format differ by 2.1 % of a tensor's norm
+# (tests/test_torch_train_hybrid.py), and cuDNN sums in yet another order
+TRAIN_UPDATE_RTOL = 5e-2
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor fp32 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+TRAIN_STEPS = 4
+BSR_2D = 161  # bn_scale_relu calls per 2D-branch forward (full preset)
+REMAT_2D = 156  # of them inside the 78 rematerialised conv blocks
+BUILD = Path(__file__).resolve().parent / "build"
 
 
 def card_line() -> str:
@@ -62,6 +87,38 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(kernel, plain) -> tuple[float, float]:
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
+    t = [cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the fp32 operations over the fp32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def counters() -> dict:
+    from hdenseunet_tpu_torch.ops import fused_affine as K, wce as W
+
+    return {
+        "affine_relu": K.affine_relu, "affine_relu_backward": K.affine_relu_backward,
+        "wce_forward": W.wce_forward, "wce_backward": W.wce_backward,
+    }
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
 def check_k1(card: str) -> dict:
     from hdenseunet_tpu_torch.ops import fused_affine as K
 
@@ -77,7 +134,7 @@ def check_k1(card: str) -> dict:
     ]
     paths = set()
     worst = 0.0
-    times = {}
+    first = None
     for label, shape, dtype, relu in cases:
         c = shape[-1]
         if label.startswith("unaligned"):
@@ -92,34 +149,152 @@ def check_k1(card: str) -> dict:
         want = K.affine_relu_reference(x, scale, shift, relu=relu)
         torch.cuda.synchronize()
         a = scale.to(dtype).float().view([1, -1] + [1] * (x.dim() - 2))
-        bound = (
+        tol = (
             torch.finfo(dtype).eps * want.float().abs()
             + ULP_FP32 * (x.float() * a).abs()
             + torch.finfo(dtype).tiny
         )
         diff = (got.float() - want.float()).abs()
         assert got.stride() == x.stride(), (label, got.stride(), x.stride())
-        assert bool((diff <= bound).all()), f"K1 disagrees at {label}: max {diff.max()}"
+        assert bool((diff <= tol).all()), f"K1 disagrees at {label}: max {diff.max()}"
         err = float(diff.max())
         worst = max(worst, err)
         path = "vector" if K.vector_path(x, got, a.flatten(), a.flatten()) else "scalar"
         paths.add(path)
-        t = [
-            cuda_ms(lambda: K.affine_relu_reference(x, scale, shift, relu=relu)),
-            cuda_ms(lambda: K.affine_relu(x, scale, shift, relu=relu)),
-            cuda_ms(lambda: K.affine_relu(x, scale, shift, relu=relu)),
-            cuda_ms(lambda: K.affine_relu_reference(x, scale, shift, relu=relu)),
-        ]
-        times[label] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
-        gbps = 2 * x.numel() * x.element_size() / (times[label][0] * 1e-3) / 1e9
-        print(
-            f"K1 {label} {str(dtype)[6:]} {path}: max_abs_err {err:.3g}, "
-            f"kernel {times[label][0]:.4f} ms ({gbps:.0f} GB/s), "
-            f"plain {times[label][1]:.4f} ms [{card}]"
+        ms, plain_ms = in_turns(
+            lambda: K.affine_relu(x, scale, shift, relu=relu),
+            lambda: K.affine_relu_reference(x, scale, shift, relu=relu),
         )
+        b = bound(2 * x.numel() * x.element_size() + 2 * 4 * c, 3 * x.numel())
+        print(
+            f"K1 {label} {str(dtype)[6:]} {path}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]"
+        )
+        first = first or dict(ms=ms, plain_ms=plain_ms, **b)
     assert paths == {"vector", "scalar"}, paths
-    k_ms, p_ms = times[cases[0][0]]
-    return dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms)
+    return dict(max_abs_err=worst, **first)
+
+
+def check_k1_backward(card: str) -> dict:
+    """K1's backward at the end2end training shapes (B*D = 64 slices)."""
+    from hdenseunet_tpu_torch.ops import fused_affine as K
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    cases = [  # (label, JAX-layout shape, dtype)
+        ("conv1_bn 64x112x112x96", (64, 112, 112, 96), torch.bfloat16),
+        ("conv2_blk 64x56x56x384", (64, 56, 56, 384), torch.bfloat16),
+        ("odd C 64x56x56x36", (64, 56, 56, 36), torch.bfloat16),
+        ("fp32 64x56x56x96", (64, 56, 56, 96), torch.float32),
+    ]
+    worst = 0.0
+    first = None
+    paths = set()
+    for label, shape, dtype in cases:
+        c = shape[-1]
+        x = (2 * torch.randn(shape, device="cuda", generator=gen)).to(dtype).movedim(-1, 1)
+        g = torch.randn(shape, device="cuda", generator=gen).to(dtype).movedim(-1, 1)
+        scale = 1 + 0.5 * torch.randn(c, device="cuda", generator=gen)
+        shift = 0.5 * torch.randn(c, device="cuda", generator=gen)
+        y = K.affine_relu_reference(x, scale, shift)
+        got = K.affine_relu_backward(g, x, scale, y)
+        want = K.affine_relu_backward_reference(g, x, scale, y)
+        torch.cuda.synchronize()
+        eps = torch.finfo(dtype).eps
+        dims = [d for d in range(x.dim()) if d != 1]
+        dx_err = (got[0].float() - want[0].float()).abs()
+        assert bool((dx_err <= eps * want[0].float().abs()).all()), f"K1 bwd dx at {label}"
+        # fp32 sums in other orders (row blocks then double, against
+        # PyTorch's reduction), then one rounding to the working dtype
+        for k, mag in ((1, (g.float() * x.float()).abs().sum(dims)), (2, g.float().abs().sum(dims))):
+            tol = eps * want[k].abs() + 256 * ULP_FP32 * mag + 1e-30
+            assert bool(((got[k] - want[k]).abs() <= tol).all()), f"K1 bwd d{'AB'[k - 1]} at {label}"
+        err = max(float(dx_err.max()), float((got[1] - want[1]).abs().max()),
+                  float((got[2] - want[2]).abs().max()))
+        worst = max(worst, err)
+        path = "vector" if K.vector_path(x, g, got[0], y) else "scalar"
+        paths.add(path)
+        ms, plain_ms = in_turns(
+            lambda: K.affine_relu_backward(g, x, scale, y),
+            lambda: K.affine_relu_backward_reference(g, x, scale, y),
+        )
+        # reads g, x and y, writes dx; A in, dA and dB out
+        b = bound(4 * x.numel() * x.element_size() + 3 * 4 * c, 5 * x.numel())
+        print(
+            f"K1 backward {label} {str(dtype)[6:]} {path}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]"
+        )
+        first = first or dict(ms=ms, plain_ms=plain_ms, **b)
+    assert paths == {"vector", "scalar"}, paths
+    return dict(max_abs_err=worst, **first)
+
+
+def wce_case(n: int, dtype, gen, *, depth: int | None):
+    """(N, 3) logits, int32 labels and a float32 mask on the card. With a
+    depth, rows are z-fastest voxels and the mask drops z 0 and depth-1, as
+    the hybrid loss does; else every fourth row is masked. Row 0 is
+    clip-active (its label's log-probability is below ln 1e-10)."""
+    logits = 3 * torch.randn((n, 3), device="cuda", generator=gen)
+    logits[0] = torch.tensor([0.0, 40.0, -40.0], device="cuda")
+    labels = torch.randint(0, 3, (n,), device="cuda", generator=gen, dtype=torch.int32)
+    labels[0] = 2
+    rows = torch.arange(n, device="cuda")
+    if depth:
+        z = rows % depth
+        mask = ((z >= 1) & (z < depth - 1)).float()
+    else:
+        mask = (rows % 4 != 3).float()
+    mask[0] = 1.0
+    return logits.to(dtype), labels, mask
+
+
+def check_k2(card: str) -> tuple[dict, dict]:
+    from hdenseunet_tpu_torch.ops import wce as W
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    w = torch.tensor((0.78, 0.65, 8.57), device="cuda")
+    cases = [  # (label, rows, dtype, depth)
+        ("end2end 8x224x224x8", 8 * 224 * 224 * 8, torch.bfloat16, 8),
+        ("end2end fp32", 8 * 224 * 224 * 8, torch.float32, 8),
+        ("2d stage 8x224x224", 8 * 224 * 224, torch.bfloat16, None),
+        ("2d stage fp32", 8 * 224 * 224, torch.float32, None),
+    ]
+    fwd_out = bwd_out = None
+    for label, n, dtype, depth in cases:
+        logits, labels, mask = wce_case(n, dtype, gen, depth=depth)
+        g = torch.tensor(1.0, device="cuda")
+        loss, cnt = W.wce_forward(logits, labels, mask, w)
+        loss_p, cnt_p = W.weighted_ce_reference(logits, labels, mask, w)
+        d = W.wce_backward(logits, labels, mask, w, cnt, g)
+        d_p = W.weighted_ce_backward_reference(logits, labels, mask, w, cnt_p, g)
+        torch.cuda.synchronize()
+        assert float(cnt) == float(cnt_p), (label, float(cnt), float(cnt_p))
+        loss_err = abs(float(loss) - float(loss_p))
+        # float32 sums of n terms in other orders
+        assert loss_err <= 1e-5 * abs(float(loss_p)), (label, float(loss), float(loss_p))
+        eps = torch.finfo(dtype).eps
+        d_err = (d.float() - d_p.float()).abs()
+        tol = eps * d_p.float().abs() + 8 * ULP_FP32 * 8.57 / float(cnt_p)
+        assert bool((d_err <= tol).all()), f"K2 backward at {label}: max {d_err.max()}"
+        assert not d[0].any(), "the clip-active row took a gradient"
+        fwd = in_turns(lambda: W.wce_forward(logits, labels, mask, w),
+                       lambda: W.weighted_ce_reference(logits, labels, mask, w))
+        bwd = in_turns(lambda: W.wce_backward(logits, labels, mask, w, cnt, g),
+                       lambda: W.weighted_ce_backward_reference(logits, labels, mask, w, cnt_p, g))
+        row = 3 * logits.element_size() + 4 + 4  # logits, label, mask
+        b_fwd = bound(n * row + 3 * 4 + 2 * 4, n * (6 * 3 + 6))
+        b_bwd = bound(n * (row + 3 * logits.element_size()) + 3 * 4 + 2 * 4, n * (8 * 3 + 8))
+        print(
+            f"K2 {label} {str(dtype)[6:]} N={n}: loss err {loss_err:.3g}, dlogits max_abs_err "
+            f"{float(d_err.max()):.3g}; forward {fwd[0]:.4f} ms vs plain {fwd[1]:.4f} ms, "
+            f"bound {b_fwd['bound_ms']:.4f} ms ({b_fwd['bound_by']}); backward {bwd[0]:.4f} ms "
+            f"vs plain {bwd[1]:.4f} ms, bound {b_bwd['bound_ms']:.4f} ms ({b_bwd['bound_by']}) [{card}]"
+        )
+        if fwd_out is None:  # the end2end bf16 case gives the times
+            fwd_out = dict(max_abs_err=0.0, ms=fwd[0], plain_ms=fwd[1], **b_fwd)
+            bwd_out = dict(max_abs_err=0.0, ms=bwd[0], plain_ms=bwd[1], **b_bwd)
+        fwd_out["max_abs_err"] = max(fwd_out["max_abs_err"], loss_err)
+        bwd_out["max_abs_err"] = max(bwd_out["max_abs_err"], float(d_err.max()))
+    return fwd_out, bwd_out
 
 
 def synthetic_case(seed: int):
@@ -133,13 +308,13 @@ def synthetic_case(seed: int):
     return vol, ext
 
 
-def main_path(card: str) -> int:
-    from hdenseunet_tpu_torch._reuse import Config, postprocess
+def serve_path(card: str) -> dict:
+    from hdenseunet_tpu_torch.core.config import Config
     from hdenseunet_tpu_torch.core.initializers import init_model
+    from hdenseunet_tpu_torch.infer import postprocess
     from hdenseunet_tpu_torch.infer.predictor import VolumePredictor
     from hdenseunet_tpu_torch.models import layers as L
     from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
-    from hdenseunet_tpu_torch.ops.fused_affine import affine_relu
 
     cfg = Config()
     cfg.model.compute_dtype = "bfloat16"
@@ -155,16 +330,16 @@ def main_path(card: str) -> int:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    affine_relu.launches = 0
+    reset_counts()
     seconds, labelmaps = [], []
     for vol, ext in cases:
         t0 = time.perf_counter()
         labelmaps.append(predictor.segment(vol, ext))
         seconds.append(time.perf_counter() - t0)
-    launches = affine_relu.launches
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    assert launches >= bsr_per_forward * runs, (launches, bsr_per_forward, runs)
+    assert launches["affine_relu"] >= bsr_per_forward * runs, (launches, bsr_per_forward, runs)
     for (vol, _), lab in zip(cases, labelmaps):
         assert lab.dtype == np.uint8 and lab.shape == vol.shape, (lab.dtype, lab.shape)
         assert set(np.unique(lab).tolist()) <= {0, 1, 2}, np.unique(lab)
@@ -176,16 +351,75 @@ def main_path(card: str) -> int:
     counts = [np.bincount(lab.ravel(), minlength=3).tolist() for lab in labelmaps]
     host_pp = "native" if postprocess.native.pp_available() else "scipy"
     print(
-        f"main path: 2 volumes {VOLUME_SHAPE} full preset bf16, {runs} window runs, "
+        f"serve path: 2 volumes {VOLUME_SHAPE} full preset bf16, {runs} window runs, "
         f"s/volume {[round(s, 3) for s in seconds]}, peak {peak / 2**30:.2f} GiB, "
-        f"K1 launches {launches} (>= {bsr_per_forward} x {runs}), "
+        f"launches {launches} (K1 >= {bsr_per_forward} x {runs}), "
         f"label counts {counts}, host postprocess {host_pp} [{card}]"
     )
     return launches
 
 
+def train_path(card: str, arch: str) -> dict:
+    """``train`` for TRAIN_STEPS steps at full width; ms/step over steps 2-4
+    (each step ends in the loss drain's sync: log_every_steps = 1)."""
+    from hdenseunet_tpu_torch.core.config import Config
+    from hdenseunet_tpu_torch.data.sampler import synthetic_batches
+    from hdenseunet_tpu_torch.train.trainer import train
+
+    cfg = Config()
+    cfg.model.compute_dtype = "bfloat16"
+    cfg.train.arch = arch
+    cfg.train.batch = 8
+    cfg.train.remat = True
+    cfg.train.log_every_steps = 1
+    cfg.train.save_path = str(BUILD / "chip_smoke_train" / arch)
+    mode = "2d" if arch == "2d" else "hybrid"
+    gen = synthetic_batches(
+        mode=mode, batch=cfg.train.batch, input_size=cfg.model.input_size,
+        input_cols=cfg.model.input_cols, seed=SEED,
+    )
+    batches = [next(gen) for _ in range(TRAIN_STEPS)]
+    asked = []
+
+    def timed():
+        for batch in batches:
+            asked.append(time.perf_counter())
+            yield batch
+
+    history = Path(cfg.train.save_path) / "history" / "lossbatch.txt"
+    history.unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    train(cfg, timed(), max_steps=TRAIN_STEPS, device="cuda", log_fn=lambda *a: None)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in history.read_text().split()]
+    assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
+    steps = TRAIN_STEPS
+    if arch == "end2end":
+        want = {"affine_relu": (BSR_2D + REMAT_2D) * steps, "affine_relu_backward": BSR_2D * steps,
+                "wce_forward": steps, "wce_backward": steps}
+    else:
+        want = {"affine_relu": 0, "affine_relu_backward": 0, "wce_forward": steps, "wce_backward": steps}
+    assert launches == want, (arch, launches, want)
+    ms = (end - asked[1]) / (steps - 1) * 1e3
+    slices = cfg.train.batch * (cfg.model.input_cols if arch != "2d" else 1)
+    shape = f"{cfg.model.input_size}^2" + (f"x{cfg.model.input_cols}" if arch != "2d" else "")
+    print(
+        f"train path {arch}: {steps} steps, full preset bf16 remat, batch {cfg.train.batch} x "
+        f"{shape}: first step {(asked[1] - asked[0]) * 1e3:.1f} ms, {ms:.1f} ms/step over steps "
+        f"2-{steps}, {slices / ms * 1e3:.1f} slices/s, peak {peak / 2**30:.2f} GiB, losses "
+        f"{[round(v, 5) for v in losses]}, launches {launches} "
+        f"(K1 forward {launches['affine_relu'] // steps}/step) [{card}]"
+    )
+    return launches
+
+
 def model_check(card: str) -> float:
-    from hdenseunet_tpu_torch._reuse import InferConfig
+    from hdenseunet_tpu_torch.core.config import InferConfig
     from hdenseunet_tpu_torch.core.initializers import init_model
     from hdenseunet_tpu_torch.infer.device_pipeline import DeviceVolumeScorer
     from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
@@ -207,28 +441,89 @@ def model_check(card: str) -> float:
     return err
 
 
+def train_check(card: str) -> None:
+    """One tiny end2end train step in float32 on the CPU (plain versions)
+    and on the card (kernels), from the same seeded weights and batch, with
+    dropout as the identity (the two devices' random bits differ)."""
+    from hdenseunet_tpu_torch.core.config import Config
+    from hdenseunet_tpu_torch.data.sampler import synthetic_batches
+    from hdenseunet_tpu_torch.models import layers as L
+    from hdenseunet_tpu_torch.train import trainer as T
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config()
+    cfg.model.preset, cfg.model.input_size, cfg.train.batch = "tiny", 32, 2
+    batch = next(synthetic_batches(mode="hybrid", batch=2, input_size=32, input_cols=8, seed=SEED))
+    dropout = L.dropout
+    L.dropout = lambda x, rate, generator=None: x
+    try:
+        states, losses, deltas = [], [], []
+        for device in ("cpu", "cuda"):
+            st = T.create_train_state(cfg, "end2end", device=device, seed=SEED)
+            before = {k: v.detach().cpu().clone() for k, v in st.model.state_dict().items()}
+            reset_counts()
+            losses.append(float(T.train_step(st, batch, cfg)))
+            states.append({k: v.detach().cpu() for k, v in st.model.state_dict().items()})
+            deltas.append({k: states[-1][k] - before[k] for k in before})
+        launches = read_counts()
+    finally:
+        L.dropout = dropout
+    assert all(n > 0 for n in launches.values()), launches
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0]), losses
+    worst = 0.0
+    for name, d_cpu in deltas[0].items():
+        if name.endswith(("moving_mean", "moving_variance")):
+            torch.testing.assert_close(states[1][name], states[0][name], rtol=1e-4, atol=1e-4)
+            continue
+        allowed = 2 * ULP_FP32 * states[0][name].abs() + 1e-9
+        excess = float(((deltas[1][name] - d_cpu).abs() - allowed).clamp_min(0).norm())
+        assert excess <= TRAIN_UPDATE_RTOL * float(d_cpu.norm()), (name, excess, float(d_cpu.norm()))
+        worst = max(worst, excess / float(d_cpu.norm()) if d_cpu.any() else 0.0)
+    print(
+        f"train check: tiny end2end fp32 step, card (kernels {launches}) vs CPU (plain): "
+        f"loss {losses[1]:.7g} vs {losses[0]:.7g}, worst update error {worst:.3g} of its "
+        f"tensor's update norm [{card}]"
+    )
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a card")
-    card = card_line()
-    print(f"card: {card}; torch {torch.__version__}; cuda {torch.version.cuda}")
-
     from hdenseunet_tpu_torch.ops import build
 
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}; cuda {torch.version.cuda}")
     so, seconds = build.build()
     print(f"build: {so.name} in {seconds:.1f} s")
 
     k1 = check_k1(card)
-    launches = main_path(card)
+    k1_bwd = check_k1_backward(card)
+    k2_fwd, k2_bwd = check_k2(card)
+    paths = {
+        "serve": serve_path(card),
+        "train_end2end": train_path(card, "end2end"),
+        "train_2d": train_path(card, "2d"),
+    }
     model_check(card)
-    kernels = [{
-        "name": "affine_relu",
-        "route": "cuda",
-        "source": "hdenseunet_tpu_torch/csrc/fused_affine.cu",
-        "replaces": "hdenseunet_tpu/ops/fused_affine.py:48",
-        "launches": launches,
-        **k1,
-    }]
+    train_check(card)
+    kernels = []
+    for name, source, replaces, numbers in (
+        ("affine_relu", "fused_affine.cu", "fused_affine.py:48", k1),
+        ("affine_relu_backward", "fused_affine.cu", "fused_affine.py:81", k1_bwd),
+        ("wce_forward", "wce.cu", "wce.py:80", k2_fwd),
+        ("wce_backward", "wce.cu", "wce.py:129", k2_bwd),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"hdenseunet_tpu_torch/csrc/{source}",
+            "replaces": f"hdenseunet_tpu/ops/{replaces}",
+            "launches": paths["train_end2end"][name],
+            "launches_by_path": {path: counts[name] for path, counts in paths.items()},
+            **numbers,
+            "library_ms": None,  # no single PyTorch call computes the same function
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

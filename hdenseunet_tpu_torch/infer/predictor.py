@@ -2,8 +2,8 @@
 hdenseunet_tpu/infer/predictor.py; reference test.py:39-115).
 
 The scorer runs on the device; the connected-component postprocess runs on
-the host through the JAX package's own framework-free ``postprocess`` module
-(native/postprocess.cpp), byte for byte the reference's.
+the host (``infer/postprocess.py`` with ``native/postprocess.cpp``), byte for
+byte the reference's.
 """
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from pathlib import Path
 
 import numpy as np
 
-from .._reuse import nifti, postprocess
+from ..data import nifti
+from . import postprocess
 from .device_pipeline import DeviceVolumeScorer
 
 

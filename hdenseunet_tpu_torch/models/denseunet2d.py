@@ -1,8 +1,9 @@
 """2D DenseUNet-167 (counterpart of hdenseunet_tpu/models/denseunet2d.py).
 
 DenseNet-161 encoder + 5-stage upsampling decoder, the current (no long skip
-connections) variant as the hybrid embeds it: every encoder BN frozen, no
-decoder dropout. Layer names are the reference graph's, byte for byte.
+connections) variant. One forward serves the 2D training stage (live BN,
+decoder dropout 0.3 at up4) and the hybrid's 2D branch (every BN frozen, no
+decoder dropout). Layer names are the reference graph's, byte for byte.
 """
 from __future__ import annotations
 
@@ -71,28 +72,49 @@ class DenseUNet2D(nn.ModuleDict):
             cin = width
         conv("dense167classifer", cin, num_classes, 1, padding="same", init="normal")
 
-    def _bsr(self, x, base):
-        return L.bn_scale_relu(x, self[base + "_bn"], self[base + "_scale"])
+    def _bsr(self, x, base, ctx, frozen):
+        return L.bn_scale_relu(
+            x, self[base + "_bn"], self[base + "_scale"], ctx=ctx, frozen=frozen
+        )
 
-    def forward(self, x):
+    def _conv_block(self, ctx, x, base, frozen, rate):
+        """BN-Scale-ReLU-Conv1x1 bottleneck, then BN-Scale-ReLU-Conv3x3
+        (densenet.py:103-137)."""
+        x = L.maybe_dropout(ctx, self[base + "_x1"](self._bsr(x, base + "_x1", ctx, frozen)), rate)
+        return L.maybe_dropout(ctx, self[base + "_x2"](self._bsr(x, base + "_x2", ctx, frozen)), rate)
+
+    def forward(
+        self, x, ctx: L.Ctx | None = None, *, bn_frozen: bool = False,
+        decoder_dropout: float = 0.3, block_dropout: float = 0.0,
+    ):
         """x: (B, H, W, 3), H and W divisible by 32 ->
-        (ac_up4 features (B, H, W, F), logits (B, H, W, num_classes))."""
+        (ac_up4 features (B, H, W, F), logits (B, H, W, num_classes)).
+
+        ``ctx`` None is inference. With a training ``ctx`` the BNs use batch
+        statistics unless ``bn_frozen``, dropout runs at ``block_dropout``
+        after every encoder conv and at ``decoder_dropout`` before bn_up4,
+        and each conv block may be rematerialised (denseunet2d.py:46-218).
+        """
         assert x.dim() == 4 and x.shape[1] % 32 == 0 and x.shape[2] % 32 == 0, x.shape
+        frozen, rate = bn_frozen, block_dropout
         x = L.channels_last(x.movedim(-1, 1))
-        x = self._bsr(self["conv1"](x), "conv1")
+        x = self._bsr(self["conv1"](x), "conv1", ctx, frozen)
         x = L.max_pool(x, 3, 2, pad=1)
         for block_idx, nb_layers in enumerate(self.blocks):
             stage = block_idx + 2
             for branch in range(1, nb_layers + 1):  # dense block (densenet.py:103-193)
-                base = f"conv{stage}_{branch}"
-                out = self[base + "_x1"](self._bsr(x, base + "_x1"))
-                out = self[base + "_x2"](self._bsr(out, base + "_x2"))
-                x = L.channels_last(torch.cat([x, out], dim=1))
-            x = self._bsr(x, f"conv{stage}_blk")
+                block = lambda c, f, base=f"conv{stage}_{branch}": self._conv_block(
+                    c, f, base, frozen, rate
+                )
+                x = L.channels_last(torch.cat([x, L.maybe_remat(ctx, block, x)], dim=1))
+            x = self._bsr(x, f"conv{stage}_blk", ctx, frozen)
             if block_idx < len(self.blocks) - 1:  # transition (densenet.py:140-166)
-                x = L.avg_pool(self[f"conv{stage}_blk"](x), 2, 2)
-        for idx in range(5):  # UpSample2x -> Conv3x3 -> BN -> ReLU
-            x = L.upsample_nearest(x, 2)
-            x = torch.relu(self[f"bn_up{idx}"](self[f"conv_up{idx}"](x)))
+                x = L.maybe_dropout(ctx, self[f"conv{stage}_blk"](x), rate)
+                x = L.avg_pool(x, 2, 2)
+        for idx in range(5):  # UpSample2x -> Conv3x3 -> [Dropout] -> BN -> ReLU
+            x = self[f"conv_up{idx}"](L.upsample_nearest(x, 2))
+            if idx == 4:
+                x = L.maybe_dropout(ctx, x, decoder_dropout)
+            x = torch.relu(self[f"bn_up{idx}"](x, ctx, frozen=frozen))
         logits = self["dense167classifer"](x)
         return x.movedim(1, -1), logits.movedim(1, -1)

@@ -78,29 +78,45 @@ class DenseUNet3D(nn.ModuleDict):
             cin = width
         conv("3dclassifer", cin, num_classes, 1, padding="same")
 
-    def _bsr(self, x, base):
-        return L.bn_scale_relu(x, self[base + "_bn"], self[base + "_scale"])
+    def _bsr(self, x, base, ctx, frozen):
+        return L.bn_scale_relu(
+            x, self[base + "_bn"], self[base + "_scale"], ctx=ctx, frozen=frozen
+        )
 
-    def forward(self, x):
+    def _conv_block(self, ctx, x, base, frozen, rate):
+        """Reference denseunet3d.py:18-52."""
+        x = L.maybe_dropout(ctx, self[base + "_x1"](self._bsr(x, base + "_x1", ctx, frozen)), rate)
+        return L.maybe_dropout(ctx, self[base + "_x2"](self._bsr(x, base + "_x2", ctx, frozen)), rate)
+
+    def forward(
+        self, x, ctx: L.Ctx | None = None, *, bn_frozen: bool = False,
+        block_dropout: float = 0.0,
+    ):
         """x: (B, H, W, D, C), H and W divisible by 32, D by 4 ->
-        (ac_up4 features (B, H, W, D, F), logits (B, H, W, D, num_classes))."""
+        (ac_up4 features (B, H, W, D, F), logits (B, H, W, D, num_classes)).
+
+        ``ctx`` None is inference; a training ``ctx`` gives live BNs (unless
+        ``bn_frozen``), dropout at ``block_dropout`` after every encoder conv
+        and per-block remat (denseunet3d.py:126-294)."""
         assert x.dim() == 5 and x.shape[1] % 32 == 0 and x.shape[2] % 32 == 0, x.shape
         assert x.shape[3] % 4 == 0, f"depth {x.shape[3]} must be divisible by 4"
+        frozen, rate = bn_frozen, block_dropout
         x = L.channels_last(x.movedim(-1, 1))
-        x = self._bsr(self["3dconv1"](x), "3dconv1")
+        x = self._bsr(self["3dconv1"](x), "3dconv1", ctx, frozen)
         x = L.max_pool(x, 3, 2, pad=1)
         for block_idx, nb_layers in enumerate(self.blocks):
             stage = block_idx + 2
             for branch in range(1, nb_layers + 1):  # dense block (denseunet3d.py:18-77)
-                base = f"3dconv{stage}_{branch}"
-                out = self[base + "_x1"](self._bsr(x, base + "_x1"))
-                out = self[base + "_x2"](self._bsr(out, base + "_x2"))
-                x = L.channels_last(torch.cat([x, out], dim=1))
-            x = self._bsr(x, f"3dconv{stage}_blk")
+                block = lambda c, f, base=f"3dconv{stage}_{branch}": self._conv_block(
+                    c, f, base, frozen, rate
+                )
+                x = L.channels_last(torch.cat([x, L.maybe_remat(ctx, block, x)], dim=1))
+            x = self._bsr(x, f"3dconv{stage}_blk", ctx, frozen)
             if block_idx < len(self.blocks) - 1:  # z-preserving transition
-                x = L.avg_pool(self[f"3dconv{stage}_blk"](x), (2, 2, 1), (2, 2, 1))
+                x = L.maybe_dropout(ctx, self[f"3dconv{stage}_blk"](x), rate)
+                x = L.avg_pool(x, (2, 2, 1), (2, 2, 1))
         for idx, up in enumerate(UPSAMPLE):  # UpSample -> Conv3x3x3 -> BN -> ReLU
-            x = L.upsample_nearest(x, up)
-            x = torch.relu(self[f"3dbn_up{idx}"](self[f"3dconv_up{idx}"](x)))
+            x = self[f"3dconv_up{idx}"](L.upsample_nearest(x, up))
+            x = torch.relu(self[f"3dbn_up{idx}"](x, ctx, frozen=frozen))
         logits = self["3dclassifer"](x)
         return x.movedim(1, -1), logits.movedim(1, -1)

@@ -4,8 +4,10 @@ Counterpart of hdenseunet_tpu/models/hybrid.py. Each z slice's 3-slice stack
 goes through the 2D DenseUNet; its logits, amplified x250, join the raw
 volume as the 4-channel input of the 3D DenseUNet; the 3D feature map plus
 the z-stacked 2D features go through the HFF head (hybridnet.py:379-423).
-Both hybrid archs freeze every 2D BN; at inference the archs differ only in
-the head's dropout rate, which is the identity here.
+Both hybrid archs freeze every 2D BN and train the 3D branch's and the
+head's with live statistics; the archs differ in the head's dropout rate
+(0.3 end2end, 0.1 3dpart; the identity at inference) and in which leaves
+train (:func:`trainable_predicate`, applied by train/optimizer.py).
 """
 from __future__ import annotations
 
@@ -48,12 +50,12 @@ class HFFHead(nn.ModuleDict):
         self["final_bn"] = L.BatchNorm(HEAD_WIDTH, eps=1e-3, device=device)
         self["2d3dclassifer"] = L.Conv(HEAD_WIDTH, num_classes, 1, ndim=3, device=device)
 
-    def forward(self, feat3d, fea2d, *, arch: str = "end2end"):
+    def forward(self, feat3d, fea2d, ctx: L.Ctx | None = None, *, arch: str = "end2end"):
         """feat3d, fea2d: (B, H, W, D, F) -> logits (B, H, W, D, num_classes)."""
         fused = L.channels_last((feat3d + fea2d).movedim(-1, 1))  # HFF (hybridnet.py:414)
         f = self["fianl_conv"](fused)
-        f = L.dropout(f, 0.3 if arch == "end2end" else 0.1)
-        f = torch.relu(self["final_bn"](f))
+        f = L.maybe_dropout(ctx, f, 0.3 if arch == "end2end" else 0.1)
+        f = torch.relu(self["final_bn"](f, ctx))
         return self["2d3dclassifer"](f).movedim(1, -1)
 
 
@@ -74,21 +76,55 @@ class HDenseUNet(nn.Module):
         assert width2d == width3d, (width2d, width3d)
         self.head = HFFHead(width3d, num_classes=num_classes, device=device)
 
-    def forward(self, vol, *, arch: str = "end2end"):
+    def forward(self, vol, ctx: L.Ctx | None = None, *, arch: str = "end2end"):
         """vol: (B, H, W, D, 1); H, W divisible by 32; D by 4 ->
-        logits (B, H, W, D, num_classes)."""
+        logits (B, H, W, D, num_classes). ``ctx``: None for inference, a
+        training :class:`layers.Ctx` otherwise (hybrid.py:68-118)."""
         assert arch in ("end2end", "3dpart"), arch
         b, _, _, d = vol.shape[:4]
-        feat2d, logits2d = self.net2d(stack_adjacent_slices(vol))
+        feat2d, logits2d = self.net2d(
+            stack_adjacent_slices(vol), ctx, bn_frozen=True, decoder_dropout=0.0
+        )
         return self.fuse(
-            vol, unstack_to_volume(logits2d, b, d), unstack_to_volume(feat2d, b, d), arch=arch
+            vol, unstack_to_volume(logits2d, b, d), unstack_to_volume(feat2d, b, d), ctx,
+            arch=arch,
         )
 
-    def fuse(self, vol, res2d, fea2d, *, arch: str = "end2end"):
+    def fuse(self, vol, res2d, fea2d, ctx: L.Ctx | None = None, *, arch: str = "end2end"):
         """The hybrid after its 2D branch: x250 fusion -> 3D DenseUNet -> HFF.
 
         vol (B,H,W,D,1), res2d (B,H,W,D,C) 2D logits, fea2d (B,H,W,D,F) 2D
         features -> logits (B,H,W,D,C)."""
         input3d = torch.cat([vol, res2d * LOGIT_AMPLIFICATION], dim=-1)
-        feat3d, _ = self.net3d(input3d)
-        return self.head(feat3d, fea2d, arch=arch)
+        feat3d, _ = self.net3d(input3d, ctx)
+        return self.head(feat3d, fea2d, ctx, arch=arch)
+
+
+def is_2d_name(name: str) -> bool:
+    """Layer names belonging to the 2D branch of the hybrid graph."""
+    if name.startswith("3d"):
+        return False
+    return not name in ("fianl_conv", "final_bn", "2d3dclassifer")
+
+
+def trainable_predicate(arch: str):
+    """Return f(layer_name, leaf_name) -> bool for the given training stage.
+
+    * '2d'      — everything trains (train_2ddense.py stage);
+    * '3dpart'  — only the 3D branch + HFF head train (denseunet3d.py:222-224:
+                  the whole 2D branch is `trainable=False`);
+    * 'end2end' — 2D BN gamma/beta frozen, everything else trains
+                  (hybridnet.py:210-212: convs/Scales `trainable=True`, BNs
+                  `trainable=False`).
+    """
+    if arch == "2d":
+        return lambda name, leaf: True
+    if arch == "3dpart":
+        return lambda name, leaf: not is_2d_name(name)
+    if arch == "end2end":
+        def pred(name, leaf):
+            if not is_2d_name(name):
+                return True
+            return not (name.endswith("_bn") or name.startswith("bn_up"))
+        return pred
+    raise ValueError(f"unknown arch {arch!r}")

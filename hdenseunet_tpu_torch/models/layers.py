@@ -9,9 +9,14 @@ an op that may drop it, and costs nothing when the format already holds.
 Parameters live in three layer modules whose leaf names are the JAX
 pytree's: :class:`Conv` (kernel, bias), :class:`BatchNorm` (gamma, beta and
 the moving statistics as buffers) and :class:`Scale` (gamma, beta). Each
-records how its leaves are initialised in ``inits``. Only the inference
-semantics are ported: BatchNorm always uses its moving statistics and dropout
-is the identity.
+records how its leaves are initialised in ``inits``.
+
+A forward takes ``ctx``: None for inference semantics (every BatchNorm uses
+its moving statistics, dropout is the identity), or a :class:`Ctx` for
+training (the JAX ``Ctx`` under ``train=True``): live BatchNorms normalise
+with batch statistics and write their new moving statistics into
+``ctx.new_stats``, dropout draws from ``ctx.generator``, and ``ctx.remat``
+checkpoints every conv block (:func:`maybe_remat`).
 
 Numerical-parity notes carried over from the JAX kit:
 * encoder convs pad explicitly and symmetrically (ZeroPadding + VALID);
@@ -21,13 +26,72 @@ Numerical-parity notes carried over from the JAX kit:
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.fused_affine import affine_relu, fold_bn_scale
+from ..ops.fused_affine import AffineReLU, fold_bn_scale
 
 _FORMATS = {4: torch.channels_last, 5: torch.channels_last_3d}
+
+
+class Ctx:
+    """Training state of one forward pass (core/module.py's Ctx under
+    ``train=True``).
+
+    ``new_stats`` maps each live :class:`BatchNorm` to its new moving
+    (mean, variance). BatchNorm *assigns* its entry, so a conv block that a
+    checkpoint recomputes during the backward writes the same values again
+    instead of applying the update twice; the trainer copies the dict into
+    the buffers after the optimizer step. Dropout draws from ``generator``,
+    a generator on ``device`` seeded from ``seed`` when first used.
+    """
+
+    def __init__(self, seed: int, *, device, remat: bool = False, new_stats=None):
+        self.seed = int(seed)
+        self.device = torch.device(device)
+        self.remat = remat
+        self.new_stats = {} if new_stats is None else new_stats
+        self._generator = None
+        self._children = 0
+
+    @property
+    def generator(self) -> torch.Generator:
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        return self._generator
+
+    def child_seed(self) -> int:
+        """The seed of the next conv block's context, drawn from this one's
+        (core/module.py:204-207)."""
+        self._children += 1
+        seed = np.random.SeedSequence([self.seed, self._children]).generate_state(1, np.uint64)[0]
+        return int(seed) >> 1
+
+
+def maybe_remat(ctx: Ctx | None, fn, x):
+    """``fn(sub_ctx, x)`` for one conv block (core/module.py:187-234).
+
+    The block gets a context of its own: the same ``new_stats``, no remat,
+    and a generator seeded from :meth:`Ctx.child_seed`, made anew on every
+    run of the block. Under ``ctx.remat`` with autograd on, the block runs in
+    a non-reentrant checkpoint: nothing inside it is saved and it reruns
+    during the backward, where it draws the same dropout masks and assigns
+    the same BatchNorm statistics again. Its parameters are not recomputed.
+    Remat on or off, the masks are the same.
+    """
+    if ctx is None:
+        return fn(None, x)
+    seed = ctx.child_seed()
+
+    def run(x_):
+        return fn(Ctx(seed, device=ctx.device, new_stats=ctx.new_stats), x_)
+
+    if not ctx.remat or not torch.is_grad_enabled():
+        return run(x)
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def channels_last(x):
@@ -98,11 +162,20 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Keras-semantics BatchNormalization with frozen (moving) statistics."""
+    """Keras-2.0.8-semantics BatchNormalization (layers.py:142-184).
 
-    def __init__(self, c, *, eps=1e-3, device=None):
+    With a training ``ctx`` and ``frozen`` False it normalises with the
+    batch's float32 mean and biased variance over every axis but channels,
+    and writes ``momentum*moving + (1-momentum)*batch`` into
+    ``ctx.new_stats``. Otherwise (inference, or the hybrid's frozen 2D
+    branch) it uses the moving statistics. The affine is folded in float32
+    and applied in x's dtype either way.
+    """
+
+    def __init__(self, c, *, eps=1e-3, momentum=0.99, device=None):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.gamma = nn.Parameter(torch.empty((c,), device=device))
         self.beta = nn.Parameter(torch.empty((c,), device=device))
         self.register_buffer("moving_mean", torch.empty((c,), device=device))
@@ -112,10 +185,20 @@ class BatchNorm(nn.Module):
             "moving_mean": "zeros", "moving_variance": "ones",
         }
 
-    def forward(self, x):
+    def forward(self, x, ctx: Ctx | None = None, *, frozen: bool = False):
+        if ctx is not None and not frozen:
+            dims = [d for d in range(x.dim()) if d != 1]
+            var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+            m = self.momentum
+            ctx.new_stats[self] = (
+                m * self.moving_mean + (1.0 - m) * mean.detach(),
+                m * self.moving_variance + (1.0 - m) * var.detach(),
+            )
+        else:
+            mean, var = self.moving_mean, self.moving_variance
         # affine folded in float32, applied in the tensor's own dtype
-        inv = torch.rsqrt(self.moving_variance.float() + self.eps) * self.gamma.float()
-        shift = self.beta.float() - self.moving_mean.float() * inv
+        inv = torch.rsqrt(var.float() + self.eps) * self.gamma.float()
+        shift = self.beta.float() - mean.float() * inv
         shape = [1] * x.dim()
         shape[1] = -1
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
@@ -125,7 +208,9 @@ class Scale(nn.Module):
     """Per-channel affine ``gamma*x + beta`` (reference lib/custom_layers.py).
 
     ``folded`` holds the (A, B) pair of this Scale with the BatchNorm before
-    it once :meth:`freeze` has folded them; until then it is None.
+    it once :meth:`freeze` has folded them; until then it is None. Only
+    inference reads it: training folds on every call, so that gradients
+    reach the Scale, and drops it once the weights change.
     """
 
     def __init__(self, c, *, device=None):
@@ -149,16 +234,27 @@ class Scale(nn.Module):
         return x * self.gamma.to(x.dtype).view(shape) + self.beta.to(x.dtype).view(shape)
 
 
-def bn_scale_relu(x, bn: BatchNorm, sc: Scale, *, relu_after: bool = True):
-    """Frozen BN -> Scale -> [ReLU] as one folded affine through K1; the pair
-    is folded here unless :meth:`Scale.freeze` has folded it already."""
-    if sc.folded is None:
+def bn_scale_relu(
+    x, bn: BatchNorm, sc: Scale, *, ctx: Ctx | None = None, frozen: bool = False,
+    relu_after: bool = True,
+):
+    """BN -> Scale -> [ReLU] in front of every encoder conv (layers.py:187-222).
+
+    Live statistics (a training ``ctx``, not ``frozen``): three plain ops.
+    Frozen or inference statistics: one folded affine through K1
+    (:class:`AffineReLU`, differentiable into the BN and Scale leaves). At
+    inference the pair folded by :meth:`Scale.freeze` is used if there is one.
+    """
+    if ctx is not None and not frozen:
+        y = sc(bn(x, ctx))
+        return torch.relu(y) if relu_after else y
+    if ctx is None and sc.folded is not None:
+        a, b = sc.folded
+    else:
         a, b = fold_bn_scale(
             bn.gamma, bn.beta, bn.moving_mean, bn.moving_variance, sc.gamma, sc.beta, bn.eps
         )
-    else:
-        a, b = sc.folded
-    return affine_relu(x, a, b, relu=relu_after)
+    return AffineReLU.apply(x, a, b, relu_after)
 
 
 def freeze_bn_scale(model: nn.Module):
@@ -169,6 +265,14 @@ def freeze_bn_scale(model: nn.Module):
             for name, layer in table.items():
                 if isinstance(layer, Scale):
                     layer.freeze(table[name.removesuffix("_scale") + "_bn"])
+    return model
+
+
+def unfreeze_bn_scale(model: nn.Module):
+    """Drop every folded pair (:meth:`Scale.freeze`): the weights changed."""
+    for layer in model.modules():
+        if isinstance(layer, Scale):
+            layer.folded = None
     return model
 
 
@@ -203,7 +307,20 @@ def upsample_nearest(x, factors):
     return y.movedim(-1, 1)
 
 
-def dropout(x, rate: float):
-    """Inference dropout: the identity (training arrives with the trainer)."""
-    del rate
-    return x
+def dropout(x, rate: float, generator: torch.Generator | None = None):
+    """Inverted dropout (Keras core.py Dropout): each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate). Active only in
+    training, i.e. given a generator (on x's device); else the identity."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    return x / keep * mask
+
+
+def maybe_dropout(ctx: Ctx | None, x, rate: float):
+    """:func:`dropout` with the training context's generator; the identity
+    at inference or at rate 0 (no generator is made for it)."""
+    if ctx is None or rate <= 0.0:
+        return x
+    return dropout(x, rate, ctx.generator)

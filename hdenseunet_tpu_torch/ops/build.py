@@ -1,11 +1,13 @@
 """Build the port's CUDA sources into one shared library, at first use.
 
 Every ``csrc/*.cu`` file has a plain C interface and includes no PyTorch
-header, so ``nvcc`` compiles the lot in seconds (a source that includes
-PyTorch's headers takes minutes). The library lands in ``build/`` at the root
+header, so ``nvcc`` compiles each in seconds (a source that includes
+PyTorch's headers takes minutes). One ``nvcc`` per source runs at once, then
+one links the objects. The library lands in ``build/`` at the root
 of the checkout, named by a hash of the sources and flags, so an unchanged
 tree reuses it and a changed one rebuilds. It is loaded with ``ctypes``; each
-wrapper declares the argument types of the functions it calls.
+wrapper declares the argument types of the functions it calls, and raises
+through :func:`check` when a launch returns an error.
 """
 from __future__ import annotations
 
@@ -18,11 +20,14 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' dtype argument
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
 )
 
@@ -56,14 +61,41 @@ def build() -> tuple[Path, float]:
     if so.exists():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
+    stem = f"{so.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    procs = []
+    try:
+        for src, obj in zip(sources, objects):
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [f"{src.name} ({p.returncode}):\n{log[-4000:]}"
+              for src, p, log in zip(sources, procs, logs) if p.returncode != 0]
+    tmp = so.with_name(f"{stem}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+            capture_output=True, text=True, timeout=300,
+        )
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr[-4000:]}")
     seconds = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    so.with_suffix(".log").write_text("\n".join(logs))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so, seconds
 
@@ -72,4 +104,13 @@ def build() -> tuple[Path, float]:
 def library() -> ctypes.CDLL:
     """The built library, loaded once per process."""
     so, _ = build()
-    return ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(so))
+    lib.hdu_error_string.argtypes = [ctypes.c_int]
+    lib.hdu_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed: {library().hdu_error_string(rc).decode()}")

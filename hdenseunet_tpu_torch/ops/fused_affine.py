@@ -1,15 +1,23 @@
 """Fused per-channel affine (+ReLU) for frozen BN∘Scale∘ReLU: kernel K1.
 
-Counterpart of hdenseunet_tpu/ops/fused_affine.py. At inference every
-BatchNormalization uses frozen statistics, so BN followed by the Caffe-style
-Scale is one per-channel affine, and the ReLU after it is a clamp:
+Counterpart of hdenseunet_tpu/ops/fused_affine.py. With frozen statistics,
+BatchNormalization followed by the Caffe-style Scale is one per-channel
+affine, and the ReLU after it is a clamp:
 
     relu((x*a1 + b1)*a2 + b2)  ==  relu(x*A + B),  A = a1*a2, B = b1*a2 + b2
 
-``affine_relu`` applies it. On a CUDA tensor it launches the hand-written
-kernel in ``csrc/fused_affine.cu`` (one pass over the activation) or raises;
-on a CPU tensor it runs the plain PyTorch version ``affine_relu_reference``.
-There is no fallback from the kernel to the plain version.
+``AffineReLU`` is the differentiable op, the counterpart of the JAX custom
+VJP ``_affine_relu_2d``: its forward is ``affine_relu`` and its backward
+``affine_relu_backward``. On a CUDA tensor each launches its hand-written
+kernel in ``csrc/fused_affine.cu`` or raises; on a CPU tensor each runs its
+plain PyTorch version (``affine_relu_reference``,
+``affine_relu_backward_reference``). There is no fallback from a kernel to
+its plain version.
+
+The backward keeps ``y`` from the forward, as JAX does (fused_affine.py:78),
+for the ReLU mask: it reads g, x and y and writes dx, 8 bytes per bf16
+element. Recomputing the mask from x*A+B would read 6, but y is alive anyway
+as the input the next convolution keeps for its own backward.
 """
 from __future__ import annotations
 
@@ -20,7 +28,6 @@ import torch
 
 from . import build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def fold_bn_scale(gamma_bn, beta_bn, mean, var, gamma_s, beta_s, eps):
@@ -59,26 +66,39 @@ def rows_contiguous(x) -> bool:
     return x.dim() >= 2 and x.movedim(1, -1).is_contiguous()
 
 
-def vector_path(x, y, a, b) -> bool:
+def vector_path(x, *others) -> bool:
     """Whether the 16-byte vector path may run: C a multiple of the vector
     width and every pointer 16-byte aligned (csrc/fused_affine.cu)."""
     vec = 16 // x.element_size()
-    return x.shape[1] % vec == 0 and all(t.data_ptr() % 16 == 0 for t in (x, y, a, b))
+    return x.shape[1] % vec == 0 and all(t.data_ptr() % 16 == 0 for t in (x, *others))
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @functools.cache
-def _kernel():
+def _lib():
+    """The built library with the argument types of K1's entry points."""
     lib = build.library()
-    fn = lib.hdu_affine_relu
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+    lib.hdu_affine_relu.argtypes = [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]
+    lib.hdu_affine_relu_bwd_workspace.argtypes = [_LL, _I, _I, _I]
+    lib.hdu_affine_relu_bwd_workspace.restype = _LL
+    lib.hdu_affine_relu_bwd.argtypes = [
+        _P, _P, _P, _P, _P, _P, _LL, _P, _P, _LL, _I, _I, _I, _I, _P,
     ]
-    fn.restype = ctypes.c_int
-    lib.hdu_error_string.argtypes = [ctypes.c_int]
-    lib.hdu_error_string.restype = ctypes.c_char_p
-    return fn, lib.hdu_error_string
+    return lib
+
+
+def _check_cuda(name, x):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in build.DTYPE_CODES:
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16, got {x.dtype}")
+    if not rows_contiguous(x):
+        raise ValueError(
+            f"{name}: kernel needs a channels-last contiguous tensor, got "
+            f"shape {tuple(x.shape)} strides {x.stride()}"
+        )
 
 
 def affine_relu(x, scale, shift, *, relu: bool = True):
@@ -93,15 +113,7 @@ def affine_relu(x, scale, shift, *, relu: bool = True):
     """
     if x.device.type == "cpu":
         return affine_relu_reference(x, scale, shift, relu=relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"affine_relu: unsupported device {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"affine_relu: kernel takes float32 or bfloat16, got {x.dtype}")
-    if not rows_contiguous(x):
-        raise ValueError(
-            f"affine_relu: kernel needs a channels-last contiguous tensor, got "
-            f"shape {tuple(x.shape)} strides {x.stride()}"
-        )
+    _check_cuda("affine_relu", x)
     c = x.shape[1]
     if tuple(scale.shape) != (c,) or tuple(shift.shape) != (c,):
         raise ValueError(f"affine_relu: scale/shift must be ({c},)")
@@ -110,18 +122,106 @@ def affine_relu(x, scale, shift, *, relu: bool = True):
     y = torch.empty_like(x)  # keeps x's channels-last strides
     if x.numel() == 0:
         return y
-    fn, error_string = _kernel()
     with torch.cuda.device(x.device):
-        rc = fn(
+        rc = _lib().hdu_affine_relu(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-            x.numel() // c, c, _DTYPE_CODES[x.dtype], int(relu),
+            x.numel() // c, c, build.DTYPE_CODES[x.dtype], int(relu),
             int(vector_path(x, y, a, b)),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"affine_relu: kernel launch failed: {error_string(rc).decode()}")
+    build.check(rc, "affine_relu")
     affine_relu.launches += 1
     return y
 
 
 affine_relu.launches = 0
+
+
+def affine_relu_backward_reference(g, x, scale, y, *, relu: bool = True):
+    """Plain PyTorch K1 backward (fused_affine.py:81-89), channels on axis 1.
+
+    g is masked by ``y > 0`` (relu only); ``dx = g * scale`` in x.dtype with
+    scale rounded to x.dtype; ``dscale = sum g*x`` and ``dshift = sum g`` over
+    every axis but 1 in float32, rounded to x.dtype and returned as float32.
+    """
+    shape = _channel_view_shape(x)
+    if relu:
+        g = torch.where(y > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    dx = (g.float() * scale.to(x.dtype).float().view(shape)).to(x.dtype)
+    dims = [d for d in range(x.dim()) if d != 1]
+    gf = g.float()
+    dscale = (gf * x.float()).sum(dims).to(x.dtype).float()
+    dshift = gf.sum(dims).to(x.dtype).float()
+    return dx, dscale, dshift
+
+
+def affine_relu_backward(g, x, scale, y, *, relu: bool = True):
+    """(dx, dscale, dshift) of ``affine_relu(x, scale, shift, relu=relu)``
+    given the output gradient g and the forward's output y (read only when
+    relu is set).
+
+    g, x, y share a shape and dtype, channels on axis 1. A CPU tensor takes
+    :func:`affine_relu_backward_reference`. A CUDA tensor launches K1's
+    backward and counts the launch in ``affine_relu_backward.launches``, or
+    raises: g, x and y must then be channels-last contiguous.
+    """
+    if x.device.type == "cpu":
+        return affine_relu_backward_reference(g, x, scale, y, relu=relu)
+    for name, t in (("g", g), ("x", x)) + ((("y", y),) if relu else ()):
+        _check_cuda(f"affine_relu_backward ({name})", t)
+        if t.shape != x.shape or t.dtype != x.dtype:
+            raise ValueError(f"affine_relu_backward: {name} does not match x")
+    c = x.shape[1]
+    if tuple(scale.shape) != (c,):
+        raise ValueError(f"affine_relu_backward: scale must be ({c},)")
+    a = scale.to(device=x.device, dtype=torch.float32).contiguous()
+    dx = torch.empty_like(x)
+    dscale = torch.empty((c,), dtype=torch.float32, device=x.device)
+    dshift = torch.empty((c,), dtype=torch.float32, device=x.device)
+    rows = x.numel() // c
+    if rows == 0:
+        return dx, dscale.zero_(), dshift.zero_()
+    dtype = build.DTYPE_CODES[x.dtype]
+    vec = int(vector_path(x, g, dx, *((y,) if relu else ())))
+    lib = _lib()
+    n_ws = lib.hdu_affine_relu_bwd_workspace(rows, c, dtype, vec)
+    with torch.cuda.device(x.device):
+        workspace = torch.empty((n_ws,), dtype=torch.float32, device=x.device)
+        rc = lib.hdu_affine_relu_bwd(
+            g.data_ptr(), x.data_ptr(), y.data_ptr() if relu else None, a.data_ptr(),
+            dx.data_ptr(), workspace.data_ptr(), n_ws, dscale.data_ptr(), dshift.data_ptr(),
+            rows, c, dtype, int(relu), vec, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(rc, "affine_relu_backward")
+    affine_relu_backward.launches += 1
+    return dx, dscale, dshift
+
+
+affine_relu_backward.launches = 0
+
+
+def _like_rows(g, x):
+    """g in x's memory format: channels-last contiguous, as the kernel reads."""
+    if rows_contiguous(g):
+        return g
+    return g.movedim(1, -1).contiguous().movedim(-1, 1)
+
+
+class AffineReLU(torch.autograd.Function):
+    """Differentiable ``relu(x * scale + shift)`` (the JAX custom VJP
+    ``_affine_relu_2d``): forward :func:`affine_relu`, backward
+    :func:`affine_relu_backward`, which returns float32 gradients for the
+    float32 scale and shift, rounded to x.dtype as JAX's are."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, relu: bool = True):
+        y = affine_relu(x, scale, shift, relu=relu)
+        ctx.relu = relu
+        ctx.save_for_backward(x, scale, y if relu else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, y = ctx.saved_tensors
+        dx, dscale, dshift = affine_relu_backward(_like_rows(g, x), x, scale, y, relu=ctx.relu)
+        return dx, dscale, dshift, None

@@ -1,0 +1,244 @@
+"""Training steps and the host training loop (counterpart of
+hdenseunet_tpu/train/trainer.py) on one device.
+
+Stages (reference recipes):
+  '2d'      — train_2ddense.py: DenseUNet-2D on (B,H,W,3) slabs, per-center-slice
+              labels, weighted CE, everything trainable.
+  '3dpart'  — train_hybrid.py -arch 3dpart: hybrid with the whole 2D branch
+              frozen; boundary z-slices masked from the loss.
+  'end2end' — train_hybrid.py -arch end2end: hybrid with 2D convs/Scales
+              training, all 2D BNs frozen.
+
+A step is forward, loss (K2), backward, the SGD update and the BN-state
+merge, all queued on the device without a host sync; ``train`` syncs only
+where it drains the losses, as the JAX loop does. The model, the optimizer
+and the moving statistics are updated in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..core.config import Config
+from ..core.initializers import init_model
+from ..models import denseunet2d, hybrid
+from ..models import layers as L
+from ..utils.guards import NaNGuard
+from .loss import weighted_crossentropy_2d, weighted_crossentropy_hybrid
+from .optimizer import make_optimizer
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    labels: dict  # {layer: {leaf: 'train' | 'freeze'}}
+    arch: str
+    generator: torch.Generator  # host generator: one dropout seed per step
+    loss_weights: torch.Tensor  # (C,) float32 on the model's device
+    step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.loss_weights.device
+
+
+def build_model(cfg: Config, arch: str, *, device=None) -> torch.nn.Module:
+    """The stage's model, uninitialised: the 2D DenseUNet for '2d' (with
+    ``cfg.model.reduction``), else the hybrid (trainer.py:57-81)."""
+    if arch == "2d":
+        return denseunet2d.DenseUNet2D(
+            reduction=cfg.model.reduction, num_classes=cfg.model.num_classes, device=device,
+            **denseunet2d.PRESETS[cfg.model.preset],
+        )
+    return hybrid.HDenseUNet(
+        preset=cfg.model.preset, num_classes=cfg.model.num_classes, device=device
+    )
+
+
+def create_train_state(cfg: Config, arch: str | None = None, *, device, seed: int | None = None):
+    """Model from the port's seeded initializer, the stage's optimizer,
+    step 0 and the dropout generator, on ``device``."""
+    arch = arch or cfg.train.arch
+    if cfg.train.remat_policy != "full":
+        raise NotImplementedError("remat_policy='convs' is not ported yet")
+    if arch != "2d" and cfg.model.layout3d != "hwdc":
+        raise NotImplementedError("the d-major 3D layout is a TPU lever and is not ported")
+    seed = cfg.train.seed if seed is None else seed
+    model = init_model(build_model(cfg, arch), seed).to(device)  # stem_s2d: the direct stem
+    opt, labels = make_optimizer(
+        model, arch, cfg.train.lr, cfg.train.momentum, cfg.train.nesterov
+    )
+    weights = torch.tensor(cfg.train.loss_weights, dtype=torch.float32, device=device)
+    gen = torch.Generator().manual_seed(seed + 1)
+    return TrainState(model, opt, labels, arch, gen, weights)
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """numpy batch -> tensors on device; pinned and asynchronous to a card."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if k == "label":
+            t = t.to(torch.int32)
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def forward_loss(model, batch: dict, ctx: L.Ctx | None, *, arch: str, cfg: Config, weights):
+    """The stage's loss on a device batch (trainer.py:84-125); ``ctx`` None
+    is the eval forward (moving statistics, no dropout)."""
+    image = batch["image"].to(getattr(torch, cfg.model.compute_dtype))
+    if arch == "2d":
+        _, logits = model(image, ctx, bn_frozen=False, decoder_dropout=0.3)
+        return weighted_crossentropy_2d(logits, batch["label"], weights)
+    logits = model(image, ctx, arch=arch)
+    if cfg.train.mask_boundary_slices:
+        return weighted_crossentropy_hybrid(logits, batch["label"], weights)
+    return weighted_crossentropy_2d(
+        logits.reshape(-1, logits.shape[-1]), batch["label"].reshape(-1), weights
+    )
+
+
+def train_step(state: TrainState, batch: dict, cfg: Config) -> torch.Tensor:
+    """One optimizer step on a host (numpy) or device batch; returns the
+    loss as a device scalar without waiting for it. Gradients stay in the
+    parameters' ``.grad`` until the next step."""
+    dev = state.device
+    batch = to_device(batch, dev) if isinstance(batch["image"], np.ndarray) else batch
+    seed = int(torch.randint(0, 2**62, (1,), generator=state.generator))
+    ctx = L.Ctx(seed, device=dev, remat=cfg.train.remat)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss = forward_loss(
+        state.model, batch, ctx, arch=state.arch, cfg=cfg, weights=state.loss_weights
+    )
+    loss.backward()
+    state.optimizer.step()
+    with torch.no_grad():  # BN-state merge (module.py:237-242), once per step
+        for bn, (mean, var) in ctx.new_stats.items():
+            bn.moving_mean.copy_(mean)
+            bn.moving_variance.copy_(var)
+    L.unfreeze_bn_scale(state.model)
+    state.step += 1
+    return loss.detach()
+
+
+@torch.no_grad()
+def eval_step(state: TrainState, batch: dict, cfg: Config) -> torch.Tensor:
+    """Forward-only loss: no dropout, moving statistics (trainer.py:199-211)."""
+    batch = to_device(batch, state.device) if isinstance(batch["image"], np.ndarray) else batch
+    return forward_loss(
+        state.model, batch, None, arch=state.arch, cfg=cfg, weights=state.loss_weights
+    )
+
+
+class MetricsLogger:
+    """Epoch/batch loss logs + throughput counters (trainer.py:214-262).
+
+    Writes ``history/lossepoch.txt`` like the reference's modified
+    ProgbarLogger (Keras-2.0.8/keras/callbacks.py:311-314) and
+    ``history/lossbatch.txt``, plus slices/sec on the one device.
+    """
+
+    def __init__(self, save_path: str, slices_per_sample: int = 1):
+        self.dir = Path(save_path) / "history"
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.slices_per_sample = slices_per_sample
+        self._epoch_losses: list[float] = []
+        self._last_epoch_loss: float | None = None
+        self._t0 = time.perf_counter()
+        self._samples = 0
+
+    def last_loss(self) -> float | None:
+        """Mean loss of the epoch in progress, else the completed epoch's."""
+        if self._epoch_losses:
+            return float(np.mean(self._epoch_losses))
+        return self._last_epoch_loss
+
+    def log_step(self, loss: float, batch_size: int):
+        self._epoch_losses.append(float(loss))
+        self._samples += batch_size
+        with open(self.dir / "lossbatch.txt", "a") as f:
+            f.write(f"{float(loss):.6f}\n")
+
+    def end_epoch(self) -> dict:
+        dt = max(time.perf_counter() - self._t0, 1e-9)
+        self._last_epoch_loss = (
+            float(np.mean(self._epoch_losses)) if self._epoch_losses else None
+        )
+        stats = {
+            "loss": self._last_epoch_loss if self._last_epoch_loss is not None else float("nan"),
+            "samples_per_sec": self._samples / dt,
+            "slices_per_sec_per_chip": self._samples * self.slices_per_sample / dt,
+        }
+        with open(self.dir / "lossepoch.txt", "a") as f:
+            f.write(f"{stats['loss']:.6f}\n")
+        self._epoch_losses.clear()
+        self._t0 = time.perf_counter()
+        self._samples = 0
+        return stats
+
+
+def train(
+    cfg: Config,
+    batch_iterator,
+    *,
+    max_steps: int | None = None,
+    checkpoint_dir: str | None = None,
+    resume: bool = False,
+    init_weights: dict | None = None,
+    log_fn=print,
+    device,
+):
+    """Host training loop on one device (trainer.py:265-406): host batches
+    -> device steps; losses drain (sync, NaN check, log) at
+    ``log_every_steps``, at each epoch end and at the end of the run.
+    Returns the final :class:`TrainState`.
+    """
+    if cfg.train.steps_per_dispatch > 1:
+        raise NotImplementedError("steps_per_dispatch > 1 is a TPU dispatch lever, not ported")
+    if checkpoint_dir is not None or resume:
+        raise NotImplementedError("checkpointing and resume are not ported yet")
+    if init_weights is not None:
+        raise NotImplementedError("the cross-stage warm start is not ported yet")
+    arch = cfg.train.arch
+    state = create_train_state(cfg, arch, device=device)
+    slices = cfg.model.input_cols if arch != "2d" else 1
+    metrics = MetricsLogger(cfg.train.save_path, slices_per_sample=slices)
+    nan_guard = NaNGuard()
+    steps_per_epoch = cfg.train.resolved_steps_per_epoch()
+    total = max_steps if max_steps is not None else steps_per_epoch * cfg.train.epochs
+    pending: list = []  # device losses, fetched at the drain cadence only
+
+    def drain(at_step: int):
+        for val in pending:
+            v = float(val)
+            nan_guard.check(v, at_step)
+            metrics.log_step(v, cfg.train.batch)
+        pending.clear()
+
+    step = 0
+    for batch in batch_iterator:
+        if step >= total:
+            break
+        pending.append(train_step(state, batch, cfg))
+        prev, step = step, step + 1
+
+        def crossed(n: int) -> bool:
+            return step // n > prev // n
+
+        if crossed(cfg.train.log_every_steps) or step >= total or crossed(steps_per_epoch):
+            drain(step)
+        if crossed(steps_per_epoch):
+            stats = metrics.end_epoch()
+            log_fn(
+                f"epoch {step // steps_per_epoch}: loss={stats['loss']:.4f} "
+                f"({stats['slices_per_sec_per_chip']:.1f} slices/s/chip)"
+            )
+    return state

@@ -18,7 +18,7 @@ with the card's name and power limit:
    and of the volume's end-to-end wall;
 4. K1 against the plain PyTorch chain end to end, in turns (plain, K1, K1,
    plain per pair). The plain chain is switched on here only, by pointing
-   ``models.layers.affine_relu`` at ``affine_relu_reference``; the package
+   ``ops.fused_affine.affine_relu`` at ``affine_relu_reference``; the package
    itself has no such switch. The K1 launch counter shows which one ran.
 
 It raises without a card and catches nothing.
@@ -39,7 +39,7 @@ from chip_smoke import SEED, card_line, synthetic_case
 def timed_segment(predictor, vol, ext) -> tuple[np.ndarray, dict]:
     """VolumePredictor.segment, step by step, with the device synchronised
     after scoring so each stage's host-clock time is its own."""
-    from hdenseunet_tpu_torch._reuse import postprocess
+    from hdenseunet_tpu_torch.infer import postprocess
 
     t = [time.perf_counter()]
     img = np.asarray(vol, np.float32) - predictor.cfg.infer.mean
@@ -94,7 +94,7 @@ def model_parts(model, cfg, card: str) -> None:
 
 def kernel_breakdown(predictor, vol, ext, card: str, trace: str | None) -> float:
     """Profile one volume's device scoring; returns device busy seconds."""
-    from hdenseunet_tpu_torch._reuse import postprocess
+    from hdenseunet_tpu_torch.infer import postprocess
 
     img = np.asarray(vol, np.float32) - predictor.cfg.infer.mean
     _, z_lo, z_hi = postprocess.liver_mask_extent(ext)
@@ -127,15 +127,16 @@ def kernel_breakdown(predictor, vol, ext, card: str, trace: str | None) -> float
 
 @contextlib.contextmanager
 def plain_chain():
-    """Route every bn_scale_relu through affine_relu_reference (no K1)."""
-    from hdenseunet_tpu_torch.models import layers as L
+    """Route every bn_scale_relu through affine_relu_reference (no K1): the
+    forward of ``AffineReLU`` calls the module's ``affine_relu``."""
     from hdenseunet_tpu_torch.ops import fused_affine as K
 
-    L.affine_relu = K.affine_relu_reference
+    kernel = K.affine_relu
+    K.affine_relu = K.affine_relu_reference
     try:
         yield
     finally:
-        L.affine_relu = K.affine_relu
+        K.affine_relu = kernel
 
 
 def main() -> None:
@@ -149,7 +150,7 @@ def main() -> None:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}; cuda {torch.version.cuda}")
 
-    from hdenseunet_tpu_torch._reuse import Config
+    from hdenseunet_tpu_torch.core.config import Config
     from hdenseunet_tpu_torch.core.initializers import init_model
     from hdenseunet_tpu_torch.infer.predictor import VolumePredictor
     from hdenseunet_tpu_torch.models.hybrid import HDenseUNet

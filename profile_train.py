@@ -1,0 +1,164 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's train step goes, on one CUDA card.
+
+    python3 profile_train.py [--steps 3] [--pairs 2] [--trace PATH]
+
+Runs chip_smoke.py's training configuration (full preset, bfloat16, global
+batch 8, remat, seeded random weights, synthetic batches) for the end2end
+and the 2D stage, and prints one line per measurement, each with the card's
+name and power limit:
+
+1. per stage, the step's wall time (``train_step`` then
+   ``torch.cuda.synchronize``) and the host time to queue it (before the
+   sync), after two warm-up steps;
+2. per stage, one step under ``torch.profiler``: device time by kernel,
+   device busy time, the device's idle share of the step wall, device events
+   per step, the share of the port's own kernels (K1 forward and backward,
+   K2 forward and backward), and the host's operators by self CPU time;
+3. the end2end step with the kernels against the step with their plain
+   PyTorch versions, in turns (plain, kernels, kernels, plain per pair). The
+   plain versions are switched on here only, by pointing the wrappers'
+   module names at them; the package itself has no such switch. The launch
+   counters show which ran.
+
+It raises without a card and catches nothing.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from chip_smoke import SEED, card_line
+
+OWN = ("affine_relu", "wce_")  # name fragments of the port's CUDA kernels
+
+
+def make_state(arch: str):
+    from hdenseunet_tpu_torch.core.config import Config
+    from hdenseunet_tpu_torch.data.sampler import synthetic_batches
+    from hdenseunet_tpu_torch.train.trainer import to_device, create_train_state
+
+    cfg = Config()
+    cfg.model.compute_dtype = "bfloat16"
+    cfg.train.arch, cfg.train.batch, cfg.train.remat = arch, 8, True
+    state = create_train_state(cfg, arch, device="cuda", seed=SEED)
+    gen = synthetic_batches(
+        mode="2d" if arch == "2d" else "hybrid", batch=8, input_size=cfg.model.input_size,
+        input_cols=cfg.model.input_cols, seed=SEED,
+    )
+    batch = to_device(next(gen), torch.device("cuda"))  # one batch, already on the card
+    return state, cfg, batch
+
+
+def step_times(state, cfg, batch, steps: int) -> tuple[list, list]:
+    """(wall ms, host queueing ms) per step."""
+    from hdenseunet_tpu_torch.train.trainer import train_step
+
+    walls, queued = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, batch, cfg)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        walls.append((t2 - t0) * 1e3)
+        queued.append((t1 - t0) * 1e3)
+    return walls, queued
+
+
+def profile_step(state, cfg, batch, arch: str, card: str, trace: str | None) -> None:
+    from hdenseunet_tpu_torch.train.trainer import train_step
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel: dict[str, list] = defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name][0] += 1
+            by_kernel[e.name][1] += e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(ms for _, ms in by_kernel.values())
+    own = sum(ms for name, (_, ms) in by_kernel.items() if any(f in name for f in OWN))
+    events = sum(n for n, _ in by_kernel.values())
+    print(
+        f"profiled {arch} step: wall {wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms, "
+        f"idle {100 * (1 - busy_ms / 1e3 / wall):.1f} % of the step wall, {events} device events, "
+        f"the port's kernels {own:.2f} ms ({100 * own / busy_ms:.1f} % of busy) [{card}]"
+    )
+    for name, (n, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:15]:
+        print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f} % x{n:<6d} {name[:110]}")
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:12]
+    print(f"  host ops by self CPU time (profiled step) [{card}]:")
+    for a in host:
+        print(f"  {a.self_cpu_time_total / 1e3:9.2f} ms x{a.count:<6d} {a.key[:100]}")
+    if trace:
+        path = f"{trace}.{arch}.json"
+        prof.export_chrome_trace(path)
+        print(f"trace: {path}")
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route K1, K1's backward and K2 through their plain PyTorch versions."""
+    from hdenseunet_tpu_torch.ops import fused_affine as K, wce as W
+
+    saved = (K.affine_relu, K.affine_relu_backward, W.wce_forward, W.wce_backward)
+    K.affine_relu, K.affine_relu_backward = K.affine_relu_reference, K.affine_relu_backward_reference
+    W.wce_forward, W.wce_backward = W.weighted_ce_reference, W.weighted_ce_backward_reference
+    try:
+        yield
+    finally:
+        K.affine_relu, K.affine_relu_backward, W.wce_forward, W.wce_backward = saved
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=3, help="timed steps per stage and per turn")
+    ap.add_argument("--pairs", type=int, default=2, help="plain/kernels/kernels/plain turns")
+    ap.add_argument("--trace", default=None, help="write each profiled step's chrome trace here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train: torch.cuda.is_available() is false; this script needs a card")
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}; cuda {torch.version.cuda}")
+    from hdenseunet_tpu_torch.ops import fused_affine as K
+
+    for arch in ("end2end", "2d"):
+        state, cfg, batch = make_state(arch)
+        step_times(state, cfg, batch, 2)  # warm-up: cuDNN's first calls
+        walls, queued = step_times(state, cfg, batch, args.steps)
+        print(
+            f"{arch} step: wall ms {[round(w, 1) for w in walls]}, host queueing ms "
+            f"{[round(q, 1) for q in queued]}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]"
+        )
+        profile_step(state, cfg, batch, arch, card, args.trace)
+        if arch != "end2end":
+            continue
+        runs = {"plain": [], "kernels": []}
+        for _ in range(args.pairs):
+            for variant in ("plain", "kernels", "kernels", "plain"):
+                before = K.affine_relu_backward.launches
+                with plain_versions() if variant == "plain" else contextlib.nullcontext():
+                    walls, _ = step_times(state, cfg, batch, args.steps)
+                launched = K.affine_relu_backward.launches - before
+                assert (launched == 0) == (variant == "plain"), (variant, launched)
+                runs[variant].append(float(np.median(walls)))
+        for variant, ms in runs.items():
+            print(f"end2end step with the {variant}: median ms per turn {[round(m, 1) for m in ms]} [{card}]")
+        del state, batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+if __name__ == "__main__":
+    main()

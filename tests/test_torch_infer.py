@@ -21,8 +21,10 @@ from hdenseunet_tpu.infer import device_pipeline as JD
 from hdenseunet_tpu.infer import sliding_window as JS
 from hdenseunet_tpu.infer.predictor import VolumePredictor as JVolumePredictor
 from hdenseunet_tpu.models import hybrid as JH
-from hdenseunet_tpu_torch import _reuse
+from hdenseunet_tpu_torch.core.config import Config, InferConfig
 from hdenseunet_tpu_torch.core.params import from_numpy
+from hdenseunet_tpu_torch.data import nifti
+from hdenseunet_tpu_torch.infer import postprocess
 from hdenseunet_tpu_torch.infer import device_pipeline as TD
 from hdenseunet_tpu_torch.infer.predictor import VolumePredictor, predict_directory
 from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
@@ -146,7 +148,7 @@ def jax_probs(tiny):
     out = {}
     for shape in [(64, 64, 28), (48, 40, 28)]:
         vol = _volume(shape, seed=sum(shape))
-        _, lo, hi = _reuse.postprocess.liver_mask_extent(_ext_mask(shape))
+        _, lo, hi = postprocess.liver_mask_extent(_ext_mask(shape))
         out[shape] = (vol, lo, hi, np.asarray(scorer.score(vol, lo, hi)))
     return out
 
@@ -154,7 +156,7 @@ def jax_probs(tiny):
 @pytest.mark.parametrize("shape", [(64, 64, 28), (48, 40, 28)])
 def test_scorer_probabilities_match_jax(tiny, jax_probs, shape):
     vol, lo, hi, want = jax_probs[shape]
-    scorer = TD.DeviceVolumeScorer(_port_model(tiny), _reuse.InferConfig(), device="cpu")
+    scorer = TD.DeviceVolumeScorer(_port_model(tiny), InferConfig(), device="cpu")
     got = scorer.score(vol, lo, hi)
     assert got.dtype == torch.float32 and tuple(got.shape) == shape + (3,)
     np.testing.assert_allclose(got.numpy(), want, atol=PROB_TOL, rtol=0)
@@ -190,7 +192,7 @@ def test_labelmask_byte_identical_to_jax(tiny, jax_probs, shape):
     liver_t, tumor_t = _thresholds(probs)
     assert _near_threshold(probs, (liver_t, tumor_t)) == 0
     jcfg = JInferConfig(thres_liver=liver_t, thres_tumor=tumor_t)
-    pcfg = _reuse.InferConfig(thres_liver=liver_t, thres_tumor=tumor_t)
+    pcfg = InferConfig(thres_liver=liver_t, thres_tumor=tumor_t)
     want = JD.DeviceVolumeScorer(*tiny, jcfg, preset="tiny").labelmask(vol, lo, hi)
     got = TD.DeviceVolumeScorer(_port_model(tiny), pcfg, device="cpu").labelmask(vol, lo, hi)
     assert got.dtype == np.uint8 and got.shape == shape
@@ -202,7 +204,7 @@ def _configs(thresholds):
     jcfg = JConfig()
     jcfg.model.preset = "tiny"
     jcfg.infer = dataclasses.replace(jcfg.infer, thres_liver=thresholds[0], thres_tumor=thresholds[1])
-    pcfg = _reuse.Config()
+    pcfg = Config()
     pcfg.model.preset = "tiny"
     pcfg.infer = dataclasses.replace(pcfg.infer, thres_liver=thresholds[0], thres_tumor=thresholds[1])
     return jcfg, pcfg
@@ -228,7 +230,6 @@ def test_segment_byte_identical_to_jax(tiny, segment_case):
 
 def test_predict_directory_matches_jax_segment(tiny, segment_case, tmp_path):
     vol0, ext, _, pcfg, jax_vp = segment_case
-    nifti = _reuse.nifti
     data_dir, mask_dir, out_dir = tmp_path / "d", tmp_path / "m", tmp_path / "o"
     data_dir.mkdir(), mask_dir.mkdir()
     vols = [vol0, _volume(vol0.shape, seed=5) + 48.0]
@@ -253,23 +254,16 @@ def test_predict_directory_matches_jax_segment(tiny, segment_case, tmp_path):
     ],
 )
 def test_unported_serving_options_raise(field, value):
-    cfg = _reuse.Config()
+    cfg = Config()
     cfg.model.preset = "tiny"
     cfg.infer = dataclasses.replace(cfg.infer, **{field: value})
     with pytest.raises(NotImplementedError):
         VolumePredictor(HDenseUNet(preset="tiny", device="meta"), cfg, device="meta")
 
 
-def test_reused_files_are_the_jax_packages_own():
-    assert _reuse.config.__file__ == str(REPO / "hdenseunet_tpu" / "core" / "config.py")
-    assert _reuse.postprocess.__file__ == str(REPO / "hdenseunet_tpu" / "infer" / "postprocess.py")
-    assert _reuse.nifti.__file__ == str(REPO / "hdenseunet_tpu" / "data" / "nifti.py")
-    assert dataclasses.asdict(_reuse.Config()) == dataclasses.asdict(JConfig())
-
-
 def test_port_imports_no_jax():
-    """Every module of the port loads without JAX. A subprocess, because this
-    test process imported JAX already (tests/conftest.py)."""
+    """Every module of the port loads without JAX or the JAX package. A
+    subprocess, because this test process imported both already."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "hdenseunet_tpu_torch").rglob("*.py")
@@ -277,7 +271,8 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"mods = [importlib.import_module(m) for m in {modules!r}]\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'hdenseunet_tpu')\n"
+        "             or m.startswith(('jax.', 'hdenseunet_tpu.')))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -285,4 +280,4 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == len(modules) >= 15
+    assert int(out.stdout.strip()) == len(modules) >= 28

@@ -1,10 +1,12 @@
-"""K1 (hdenseunet_tpu_torch.ops.fused_affine) against the JAX package.
+"""K1 (hdenseunet_tpu_torch.ops.fused_affine) and K2 (ops.wce) against the
+JAX package.
 
-The plain version is held against JAX's ``affine_relu`` run through the
-Pallas kernel in interpret mode; the CUDA kernel against the plain version on
-the card. The card tests take the ``cuda`` fixture and skip without a card.
-JAX is imported inside the fixture that needs it, so the card tests also run
-where JAX is absent:
+The plain versions are held against JAX's ``affine_relu`` and
+``weighted_ce`` run through their Pallas kernels in interpret mode (with
+their custom VJPs); the CUDA kernels against the plain versions on the card.
+The card tests take the ``cuda`` fixture and skip without a card. JAX is
+imported inside the fixtures that need it, so the card tests also run where
+JAX is absent:
 
     python -m pytest --noconftest -q tests/test_torch_ops.py -k cuda
 """
@@ -14,6 +16,7 @@ import torch
 
 from hdenseunet_tpu_torch.ops import build
 from hdenseunet_tpu_torch.ops import fused_affine as K
+from hdenseunet_tpu_torch.ops import wce as W
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -70,6 +73,66 @@ def test_plain_matches_jax_pallas_interpret(jax_ops, rows, c, dtype, relu):
         )
         tol = 2.0**-7 * (np.abs(xa) + np.abs(want))
     assert np.all(np.abs(got - want) <= tol + 1e-30)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [35, 36, 96])
+def test_plain_backward_matches_jax_vjp(jax_ops, c, dtype, relu):
+    """The port's closed-form backward, given JAX's own forward output y,
+    against jax.vjp through the interpret-mode Pallas kernel and its custom
+    VJP (fused_affine.py:81-89)."""
+    import jax
+    import jax.numpy as jnp
+
+    x, scale, shift = _case(613, c, seed=c)
+    g = np.random.default_rng(c + 1).normal(size=x.shape).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    y, vjp = jax.vjp(
+        lambda x_, a_, b_: jax_ops.affine_relu(x_, a_, b_, relu=relu, interpret=True),
+        jnp.asarray(x, jdt), jnp.asarray(scale), jnp.asarray(shift),
+    )
+    dx_j, da_j, db_j = (np.asarray(t.astype(jnp.float32)) for t in vjp(jnp.asarray(g, jdt)))
+    tdt = getattr(torch, dtype)
+    y_t = torch.from_numpy(np.array(y.astype(jnp.float32))).to(tdt)
+    dx, da, db = K.affine_relu_backward_reference(
+        torch.from_numpy(g).to(tdt), torch.from_numpy(x).to(tdt), torch.from_numpy(scale),
+        y_t, relu=relu,
+    )
+    assert dx.dtype == tdt and da.dtype == db.dtype == torch.float32
+    # dx = g*A rounded once in both: exact
+    np.testing.assert_array_equal(dx.float().numpy(), dx_j)
+    # per-channel sums of 613 rows in float32, in another order, then
+    # rounded to the working dtype: a few fp32 ulps of sum |g*x| plus one
+    # ulp of the working dtype
+    gm = np.where(np.asarray(y_t.float()) > 0, g, 0) if relu else g
+    xq = torch.from_numpy(x).to(tdt).float().numpy()
+    gq = torch.from_numpy(gm).to(tdt).float().numpy()
+    eps = float(torch.finfo(tdt).eps)
+    for got, want, mag in ((da, da_j, np.abs(gq * xq).sum(0)), (db, db_j, np.abs(gq).sum(0))):
+        tol = 16 * 2.0**-23 * mag + eps * np.abs(want) + 1e-30
+        assert np.all(np.abs(got.numpy() - want) <= tol)
+
+
+def test_autograd_function_on_cpu_runs_the_plain_pair():
+    """AffineReLU on CPU tensors: the plain forward, and the plain closed-form
+    backward reached through autograd, with no kernel launch."""
+    x, scale, shift = _case(6 * 5 * 4, 24, seed=9)
+    xt = torch.from_numpy(x).view(6, 5, 4, 24).movedim(-1, 1).requires_grad_()
+    a = torch.from_numpy(scale).requires_grad_()
+    b = torch.from_numpy(shift).requires_grad_()
+    before = (K.affine_relu.launches, K.affine_relu_backward.launches)
+    y = K.AffineReLU.apply(xt, a, b, True)
+    g = torch.from_numpy(np.random.default_rng(2).normal(size=y.shape).astype(np.float32))
+    y.backward(g)
+    want = K.affine_relu_backward_reference(g, xt.detach(), a.detach(), y.detach())
+    assert torch.equal(xt.grad, want[0]) and torch.equal(a.grad, want[1]) and torch.equal(b.grad, want[2])
+    # and equal to autograd through the plain forward chain (float32)
+    x2, a2, b2 = (t.detach().clone().requires_grad_() for t in (xt, a, b))
+    torch.relu(x2 * a2.view(1, -1, 1, 1) + b2.view(1, -1, 1, 1)).backward(g)
+    for got, ref in ((xt.grad, x2.grad), (a.grad, a2.grad), (b.grad, b2.grad)):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+    assert (K.affine_relu.launches, K.affine_relu_backward.launches) == before
 
 
 def test_plain_is_per_channel_on_axis_1():
@@ -130,7 +193,84 @@ def test_library_path_names_the_sources_hash():
     so = build.library_path()
     assert so.parent == build.BUILD_DIR and so.suffix == ".so"
     assert so == build.library_path()
-    assert (build.CSRC / "fused_affine.cu").exists()
+    assert (build.CSRC / "fused_affine.cu").exists() and (build.CSRC / "wce.cu").exists()
+
+
+# --------------------------------------------------------------------------
+# K2: weighted cross-entropy
+# --------------------------------------------------------------------------
+
+WEIGHTS = (0.78, 0.65, 8.57)
+
+
+def _wce_case(n, c=3, seed=0, masked=True):
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(0, 3, (n, c)).astype(np.float32)
+    labels = rng.integers(0, c, n).astype(np.int32)
+    mask = (rng.uniform(size=n) > 0.25).astype(np.float32) if masked else np.ones(n, np.float32)
+    # a clip-active row (tests/test_ops.py::test_wce_clip_active): its
+    # label's log-probability is far below ln 1e-10, so it takes no gradient
+    logits[0, :3] = (0.0, 40.0, -40.0)
+    labels[0], mask[0] = 2, 1.0
+    return logits, labels, mask
+
+
+@pytest.fixture(scope="module")
+def jax_wce():
+    pytest.importorskip("jax")
+    from hdenseunet_tpu.ops import wce
+
+    return wce
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,masked", [(2048, False), (3000, True), (5, True)])
+def test_plain_wce_matches_jax_pallas_interpret(jax_wce, n, masked, dtype):
+    import jax
+    import jax.numpy as jnp
+
+    logits, labels, mask = _wce_case(n, masked=masked, seed=n)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    lj, yj, mj = jnp.asarray(logits, jdt), jnp.asarray(labels), jnp.asarray(mask)
+    loss_j = float(jax_wce.weighted_ce(lj, yj, mj, WEIGHTS, True))
+    grad_j = jax.grad(lambda l: jax_wce.weighted_ce(l, yj, mj, WEIGHTS, True))(lj)
+    lt = torch.from_numpy(logits).to(tdt).requires_grad_()
+    loss_t = W.weighted_ce(lt, torch.from_numpy(labels), torch.from_numpy(mask), WEIGHTS)
+    loss_t.backward()
+    # float32 sums of n terms in another order (the Pallas kernel sums tiles)
+    assert abs(loss_t.item() - loss_j) <= 2e-6 * abs(loss_j)
+    assert lt.grad.dtype == tdt
+    got, want = lt.grad.float().numpy(), np.asarray(grad_j.astype(jnp.float32))
+    assert np.all(got[0] == 0) and np.all(want[0] == 0)  # the clip kills row 0's gradient
+    # the same float32 closed form, rounded once to the logits' dtype; exp
+    # differs by an ulp between the libraries, which p - 1 exposes in full
+    eps = float(torch.finfo(tdt).eps)
+    atol = 4 * 2.0**-23 * max(WEIGHTS) / mask.sum()
+    np.testing.assert_allclose(got, want, rtol=eps if dtype == "bfloat16" else 1e-5, atol=atol)
+
+
+def test_wce_plain_pair_is_the_autograd_of_the_plain_forward():
+    logits, labels, mask = _wce_case(777, seed=3)
+    w = torch.tensor(WEIGHTS)
+    lt = torch.from_numpy(logits).requires_grad_()
+    W.weighted_ce(lt, torch.from_numpy(labels), torch.from_numpy(mask), w).backward()
+    l2 = torch.from_numpy(logits).requires_grad_()
+    loss, _ = W.weighted_ce_reference(l2, torch.from_numpy(labels), torch.from_numpy(mask), w)
+    loss.backward()  # autograd through clamp_min: no gradient where the clip is active
+    np.testing.assert_allclose(lt.grad.numpy(), l2.grad.numpy(), rtol=1e-5, atol=1e-9)
+
+
+def test_wce_cpu_tensors_take_the_plain_path_without_counting():
+    logits, labels, mask = _wce_case(100)
+    before = (W.wce_forward.launches, W.wce_backward.launches)
+    lt = torch.from_numpy(logits).requires_grad_()
+    W.weighted_ce(lt, torch.from_numpy(labels), torch.from_numpy(mask), WEIGHTS).backward()
+    assert (W.wce_forward.launches, W.wce_backward.launches) == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        W.wce_forward(
+            torch.empty((4, 3), device="meta"), torch.empty(4, dtype=torch.int32, device="meta"),
+            torch.empty(4, device="meta"), torch.empty(3, device="meta"),
+        )
 
 
 # --------------------------------------------------------------------------
@@ -164,6 +304,88 @@ def test_cuda_kernel_matches_plain(cuda, shape, dtype, relu):
     # 1 ulp of the result plus 1 fp32 ulp of x*A (fused multiply-add)
     bound = torch.finfo(dtype).eps * want.float().abs() + 2.0**-23 * (x.float() * a).abs()
     assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+def _k1_backward_bound(got, want, g, x, dtype):
+    """dx within one ulp of the working dtype; dscale and dshift within one
+    ulp of the working dtype plus 256 float32 ulps of sum |g*x| (sum |g|):
+    both sum in float32, the kernel in row blocks then in double, the plain
+    version in PyTorch's reduction order."""
+    eps = torch.finfo(dtype).eps
+    dims = [d for d in range(x.dim()) if d != 1]
+    gx = (g.float() * x.float()).abs().sum(dims)
+    ga = g.float().abs().sum(dims)
+    ok = bool(((got[0].float() - want[0].float()).abs() <= eps * want[0].float().abs()).all())
+    for k, mag in ((1, gx), (2, ga)):
+        bound = eps * want[k].abs() + 256 * 2.0**-23 * mag + 1e-30
+        ok = ok and bool(((got[k] - want[k]).abs() <= bound).all())
+    return ok
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [
+        ((8, 28, 28, 96), torch.bfloat16),  # vector path
+        ((4, 14, 14, 2208), torch.bfloat16),  # widest DenseNet-161 concat: 9 channel tiles
+        ((8, 16, 16, 2, 192), torch.bfloat16),  # 3D
+        ((8, 28, 28, 36), torch.bfloat16),  # C % 8 != 0: scalar path
+        ((8, 16, 16, 96), torch.float32),  # vector path
+        ((8, 16, 16, 35), torch.float32),  # scalar path
+    ],
+)
+def test_cuda_backward_matches_plain(cuda, shape, dtype, relu):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = (2 * torch.randn(shape, device=cuda, generator=gen)).to(dtype).movedim(-1, 1)
+    g = torch.randn(shape, device=cuda, generator=gen).to(dtype).movedim(-1, 1)
+    scale = 1 + 0.5 * torch.randn(shape[-1], device=cuda, generator=gen)
+    shift = 0.5 * torch.randn(shape[-1], device=cuda, generator=gen)
+    y = K.affine_relu_reference(x, scale, shift, relu=relu)
+    before = K.affine_relu_backward.launches
+    got = K.affine_relu_backward(g, x, scale, y, relu=relu)
+    want = K.affine_relu_backward_reference(g, x, scale, y, relu=relu)
+    torch.cuda.synchronize()
+    assert K.affine_relu_backward.launches == before + 1
+    assert got[0].stride() == x.stride() and got[1].dtype == torch.float32
+    assert _k1_backward_bound(got, want, g, x, dtype)
+    again = K.affine_relu_backward(g, x, scale, y, relu=relu)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: same bits
+
+
+def test_cuda_autograd_function_launches_both_kernels(cuda):
+    x = torch.randn(4, 16, 16, 96, device=cuda).to(torch.bfloat16).movedim(-1, 1).requires_grad_()
+    a = torch.rand(96, device=cuda).requires_grad_()
+    b = torch.randn(96, device=cuda).requires_grad_()
+    before = (K.affine_relu.launches, K.affine_relu_backward.launches)
+    y = K.AffineReLU.apply(x, a, b, True)
+    y.float().sum().backward()  # the incoming gradient arrives channels-first
+    torch.cuda.synchronize()
+    assert (K.affine_relu.launches, K.affine_relu_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert x.grad.shape == x.shape and a.grad.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [401_408, 5, 2048 * 3 + 17])
+def test_cuda_wce_matches_plain(cuda, n, dtype):
+    logits, labels, mask = (torch.from_numpy(a).to(cuda) for a in _wce_case(n, seed=n))
+    logits = logits.to(dtype)
+    w = torch.tensor(WEIGHTS, device=cuda)
+    before = (W.wce_forward.launches, W.wce_backward.launches)
+    loss, cnt = W.wce_forward(logits, labels, mask, w)
+    loss_p, cnt_p = W.weighted_ce_reference(logits, labels, mask, w)
+    g = torch.tensor(1.3, device=cuda)
+    d = W.wce_backward(logits, labels, mask, w, cnt, g)
+    d_p = W.weighted_ce_backward_reference(logits, labels, mask, w, cnt_p, g)
+    torch.cuda.synchronize()
+    assert (W.wce_forward.launches, W.wce_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert float(cnt) == float(cnt_p)
+    # float32 sums of n terms in other orders
+    assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    # the same float32 closed form (exp/log within 2 ulps), one rounding
+    eps = torch.finfo(dtype).eps
+    bound = eps * d_p.float().abs() + 8 * 2.0**-23 * float(g) * 8.57 / float(cnt_p)
+    assert bool(((d.float() - d_p.float()).abs() <= bound).all())
+    assert torch.equal(W.wce_forward(logits, labels, mask, w)[0], loss)  # no atomics
 
 
 def test_cuda_kernel_raises_on_layout_and_dtype(cuda):
