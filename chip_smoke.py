@@ -11,12 +11,19 @@ failure exits non-zero):
 3. every kernel against its plain PyTorch version on the card, with its
    time, the plain version's and its bound: K1 (affine_relu) at the serving
    shapes, K1's backward at the end2end training shapes, K2 (weighted CE)
-   forward and backward at the training stages' row counts;
+   forward and backward at the training stages' row counts; each wrapper
+   call runs one kernel (torch.profiler); calls of other shapes queued back
+   to back give the plain answers and the same bits when repeated (each
+   kernel's last block resets the counter it took a ticket from);
 4. the serving path: VolumePredictor.segment on two synthetic 512x512x96 CT
    volumes, full-preset H-DenseUNet in bfloat16 with seeded random weights;
 5. the training path: ``train`` for 4 end2end steps at full width (global
    batch 8 of 224x224x8 sub-volumes, bfloat16, remat), then 4 steps of the
-   2D stage at bench.py's configuration (batch 8 of 224x224 slabs);
+   2D stage at bench.py's configuration (batch 8 of 224x224 slabs). A
+   recording wrapper on the autograd Functions notes the shape of every
+   K1-backward and K2 call; each class of shape is then held against the
+   plain version and timed alone with the L2 cache flushed, and the step's
+   summed kernel time is printed against its summed bound;
 6. model-level checks of the kernel paths: the tiny-preset scorer, and one
    tiny end2end train step, in float32 on the CPU (plain versions) and on
    the card (kernels), TF32 off;
@@ -28,10 +35,12 @@ it and read just after, and fails if a kernel of that path did not launch.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -74,17 +83,61 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn over iters calls in a row. The stream is held
+    (a ~3 ms sleep kernel, before the first event) while the host queues the
+    calls, so the host's time per call does not pace them."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(6_000_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_ms(fn, iters: int = 10) -> float:
+    """Mean device time of one call of fn with the L2 cache flushed before
+    it. The flush reads 256 MiB, five times the L2: a write would leave the
+    L2 full of dirty lines, whose write-back the timed call would pay for.
+    A ~0.2 ms sleep kernel after it holds the stream while the host queues
+    the call, so the host's time per call does not enter the interval."""
+    flush = torch.ones(2**26, dtype=torch.float32, device="cuda")
+    fn()
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    for start, end in marks:
+        flush.sum()
+        torch.cuda._sleep(400_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in marks) / iters
+
+
+def kernels_per_call(fn) -> int | None:
+    """Kernels the card runs for one call of fn, counted by torch.profiler
+    (host and device activities), after a first call (which may make the
+    stream's scratch buffer). None when three profiles in a row return no
+    device event at all: the profiler saw nothing, not even the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            assert len(names) == 1, f"one call ran {len(names)} kernels: {names}"
+            return 1
+    print("  kernels per call: not measured, the profiler returned no device event")
+    return None
 
 
 def in_turns(kernel, plain) -> tuple[float, float]:
@@ -171,8 +224,37 @@ def check_k1(card: str) -> dict:
             f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]"
         )
         first = first or dict(ms=ms, plain_ms=plain_ms, **b)
+        if label.startswith("2d conv1"):
+            first["kernels_per_call"] = kernels_per_call(lambda: K.affine_relu(x, scale, shift))
     assert paths == {"vector", "scalar"}, paths
     return dict(max_abs_err=worst, **first)
+
+
+def k1_backward_case(rows: int, c: int, dtype, relu: bool, gen):
+    """(g, x, scale, y) as (rows, C) matrices on the card; y is None
+    without relu."""
+    from hdenseunet_tpu_torch.ops.fused_affine import affine_relu_reference
+
+    x = (2 * torch.randn((rows, c), device="cuda", generator=gen)).to(dtype)
+    g = torch.randn((rows, c), device="cuda", generator=gen).to(dtype)
+    scale = 1 + 0.5 * torch.randn(c, device="cuda", generator=gen)
+    shift = 0.5 * torch.randn(c, device="cuda", generator=gen)
+    return g, x, scale, affine_relu_reference(x, scale, shift) if relu else None
+
+
+def k1_backward_error(got, want, g, x, label: str) -> float:
+    """Hold K1's backward to its plain version: dx the same bits (g*A
+    rounded once in both); dA and dB, float32 sums in other orders (row
+    blocks, then in double in the last block, against PyTorch's reduction)
+    rounded once to the working dtype, within one ulp of that dtype plus
+    256 float32 ulps of sum |g*x| (sum |g|). Returns the largest error."""
+    eps = torch.finfo(x.dtype).eps
+    dims = [d for d in range(x.dim()) if d != 1]
+    assert torch.equal(got[0], want[0]), f"K1 bwd dx at {label}"
+    for k, mag in ((1, (g.float() * x.float()).abs().sum(dims)), (2, g.float().abs().sum(dims))):
+        tol = eps * want[k].abs() + 256 * ULP_FP32 * mag + 1e-30
+        assert bool(((got[k] - want[k]).abs() <= tol).all()), f"K1 bwd d{'AB'[k - 1]} at {label}"
+    return max(float((got[k] - want[k]).abs().max()) for k in (1, 2))
 
 
 def check_k1_backward(card: str) -> dict:
@@ -199,17 +281,7 @@ def check_k1_backward(card: str) -> dict:
         got = K.affine_relu_backward(g, x, scale, y)
         want = K.affine_relu_backward_reference(g, x, scale, y)
         torch.cuda.synchronize()
-        eps = torch.finfo(dtype).eps
-        dims = [d for d in range(x.dim()) if d != 1]
-        dx_err = (got[0].float() - want[0].float()).abs()
-        assert bool((dx_err <= eps * want[0].float().abs()).all()), f"K1 bwd dx at {label}"
-        # fp32 sums in other orders (row blocks then double, against
-        # PyTorch's reduction), then one rounding to the working dtype
-        for k, mag in ((1, (g.float() * x.float()).abs().sum(dims)), (2, g.float().abs().sum(dims))):
-            tol = eps * want[k].abs() + 256 * ULP_FP32 * mag + 1e-30
-            assert bool(((got[k] - want[k]).abs() <= tol).all()), f"K1 bwd d{'AB'[k - 1]} at {label}"
-        err = max(float(dx_err.max()), float((got[1] - want[1]).abs().max()),
-                  float((got[2] - want[2]).abs().max()))
+        err = k1_backward_error(got, want, g, x, label)
         worst = max(worst, err)
         path = "vector" if K.vector_path(x, g, got[0], y) else "scalar"
         paths.add(path)
@@ -223,7 +295,9 @@ def check_k1_backward(card: str) -> dict:
             f"K1 backward {label} {str(dtype)[6:]} {path}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]"
         )
-        first = first or dict(ms=ms, plain_ms=plain_ms, **b)
+        if first is None:
+            first = dict(ms=ms, plain_ms=plain_ms, **b)
+            first["kernels_per_call"] = kernels_per_call(lambda: K.affine_relu_backward(g, x, scale, y))
     assert paths == {"vector", "scalar"}, paths
     return dict(max_abs_err=worst, **first)
 
@@ -292,9 +366,136 @@ def check_k2(card: str) -> tuple[dict, dict]:
         if fwd_out is None:  # the end2end bf16 case gives the times
             fwd_out = dict(max_abs_err=0.0, ms=fwd[0], plain_ms=fwd[1], **b_fwd)
             bwd_out = dict(max_abs_err=0.0, ms=bwd[0], plain_ms=bwd[1], **b_bwd)
+            fwd_out["kernels_per_call"] = kernels_per_call(lambda: W.wce_forward(logits, labels, mask, w))
+            bwd_out["kernels_per_call"] = kernels_per_call(
+                lambda: W.wce_backward(logits, labels, mask, w, cnt, g))
         fwd_out["max_abs_err"] = max(fwd_out["max_abs_err"], loss_err)
         bwd_out["max_abs_err"] = max(bwd_out["max_abs_err"], float(d_err.max()))
     return fwd_out, bwd_out
+
+
+def check_back_to_back(card: str) -> None:
+    """K1's backward at three shapes with K2's forward between them, all
+    queued before one sync, twice: every call agrees with its plain version
+    and the second round gives the same bits as the first. Both kernels take
+    tickets from the stream's scratch counters (K1 one per channel tile, K2
+    one), so a counter a last block failed to reset would show here."""
+    from hdenseunet_tpu_torch.ops import fused_affine as K, wce as W
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    shapes = ((12544, 2064, torch.bfloat16), (200704, 192, torch.bfloat16), (3136, 1056, torch.float32))
+    cases = [k1_backward_case(rows, c, dtype, True, gen) for rows, c, dtype in shapes]
+    logits, labels, mask = wce_case(8 * 224 * 224, torch.bfloat16, gen, depth=None)
+    w = torch.tensor((0.78, 0.65, 8.57), device="cuda")
+
+    def round_():
+        out = []
+        for g, x, scale, y in cases:
+            out += [K.affine_relu_backward(g, x, scale, y), W.wce_forward(logits, labels, mask, w)]
+        return out
+
+    first, second = round_(), round_()
+    torch.cuda.synchronize()
+    for (rows, c, dtype), (g, x, scale, y), got in zip(shapes, cases, first[0::2]):
+        k1_backward_error(got, K.affine_relu_backward_reference(g, x, scale, y), g, x, f"{rows}x{c}")
+    loss_p, cnt_p = W.weighted_ce_reference(logits, labels, mask, w)
+    for loss, cnt in first[1::2]:
+        assert float(cnt) == float(cnt_p) and abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    assert all(torch.equal(u, v) for a, b in zip(first, second) for u, v in zip(a, b)), "repeat differs"
+    print(f"back to back: K1 backward at {[s[:2] for s in shapes]} with K2 forward between, "
+          f"twice: plain answers, bit-identical repeats [{card}]")
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Note (rows, C, dtype, relu) of every K1-backward call and (rows, C,
+    dtype) of every K2 call made through the autograd Functions, by wrapping
+    AffineReLU.backward and WeightedCE.forward for the duration; launch
+    counts are untouched. The K1 record is read from the incoming gradient:
+    under remat, ctx.saved_tensors may be unpacked only once."""
+    from hdenseunet_tpu_torch.ops import fused_affine as K, wce as W
+
+    calls = {"k1": [], "k2": []}
+    k1_backward, k2_forward = K.AffineReLU.backward, W.WeightedCE.forward
+
+    def k1(ctx, g):
+        calls["k1"].append((g.numel() // g.shape[1], g.shape[1], g.dtype, ctx.relu))
+        return k1_backward(ctx, g)
+
+    def k2(ctx, logits2, *rest):
+        calls["k2"].append((*logits2.shape, logits2.dtype))
+        return k2_forward(ctx, logits2, *rest)
+
+    K.AffineReLU.backward, W.WeightedCE.forward = staticmethod(k1), staticmethod(k2)
+    try:
+        yield calls
+    finally:
+        K.AffineReLU.backward = staticmethod(k1_backward)
+        W.WeightedCE.forward = staticmethod(k2_forward)
+
+
+def sweep_k1_backward(card: str, calls: list, steps: int) -> dict:
+    """K1's backward at every (rows, C, dtype, relu) class of one end2end
+    step: each held against its plain version and timed alone with the L2
+    cache flushed; the step's summed time against its summed bound."""
+    from hdenseunet_tpu_torch.ops import fused_affine as K
+
+    classes = Counter(calls)
+    assert len(calls) == BSR_2D * steps and all(n % steps == 0 for n in classes.values()), classes
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    timed, worst = [], 0.0
+    for (rows, c, dtype, relu), n in sorted(classes.items(), key=lambda kv: (-kv[0][0], kv[0][1])):
+        g, x, scale, y = k1_backward_case(rows, c, dtype, relu, gen)
+        got = K.affine_relu_backward(g, x, scale, y, relu=relu)
+        want = K.affine_relu_backward_reference(g, x, scale, y, relu=relu)
+        torch.cuda.synchronize()
+        worst = max(worst, k1_backward_error(got, want, g, x, f"{rows}x{c}"))
+        ms = cold_ms(lambda: K.affine_relu_backward(g, x, scale, y, relu=relu))
+        elems = rows * c * ((4 if relu else 3) * x.element_size())
+        b = bound(elems + 3 * 4 * c, 5 * rows * c)["bound_ms"]
+        timed.append((n // steps, ms, b, f"{rows}x{c} {str(dtype)[6:]}"))
+        del g, x, y, got, want
+    step_ms = sum(n * ms for n, ms, _, _ in timed)
+    step_bound = sum(n * b for n, _, b, _ in timed)
+    print(
+        f"K1 backward over one end2end step: {sum(n for n, *_ in timed)} calls in {len(timed)} "
+        f"classes, each held to its plain version (worst dA/dB err {worst:.3g}); kernel "
+        f"{step_ms:.4f} ms against a summed bound of {step_bound:.4f} ms "
+        f"({100 * step_bound / step_ms:.1f} % of bound), L2 flushed before each call [{card}]"
+    )
+    for n, ms, b, label in sorted(timed, key=lambda t: -t[0] * t[1])[:6]:
+        print(f"  {label}: {n} x {ms:.4f} ms, bound {b:.4f} ms ({100 * b / ms:.1f} %)")
+    return dict(step_ms=step_ms, step_bound_ms=step_bound, step_classes=len(timed))
+
+
+def sweep_k2(card: str, calls: dict, steps: int) -> tuple[dict, dict]:
+    """K2 forward and backward at each training stage's row count, timed
+    alone with the L2 cache flushed; per stage, the step's time against
+    its bound."""
+    from hdenseunet_tpu_torch.ops import wce as W
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    w = torch.tensor((0.78, 0.65, 8.57), device="cuda")
+    g = torch.tensor(1.0, device="cuda")
+    fwd, bwd = {}, {}
+    for path, recorded in calls.items():
+        (n, c, dtype), = set(recorded)
+        assert c == 3 and len(recorded) == steps, recorded
+        logits, labels, mask = wce_case(n, dtype, gen, depth=None)
+        _, cnt = W.wce_forward(logits, labels, mask, w)
+        ms_f = cold_ms(lambda: W.wce_forward(logits, labels, mask, w))
+        ms_b = cold_ms(lambda: W.wce_backward(logits, labels, mask, w, cnt, g))
+        row = 3 * logits.element_size() + 4 + 4
+        b_f = bound(n * row + 3 * 4 + 2 * 4, n * (6 * 3 + 6))["bound_ms"]
+        b_b = bound(n * (row + 3 * logits.element_size()) + 3 * 4 + 2 * 4, n * (8 * 3 + 8))["bound_ms"]
+        fwd[path] = dict(launches=1, ms=ms_f, bound_ms=b_f)
+        bwd[path] = dict(launches=1, ms=ms_b, bound_ms=b_b)
+        print(
+            f"K2 in one {path} step (N={n}, {str(dtype)[6:]}, L2 flushed): forward {ms_f:.4f} ms "
+            f"against {b_f:.4f} ms ({100 * b_f / ms_f:.1f} % of bound), backward {ms_b:.4f} ms "
+            f"against {b_b:.4f} ms ({100 * b_b / ms_b:.1f} %) [{card}]"
+        )
+    return fwd, bwd
 
 
 def synthetic_case(seed: int):
@@ -359,9 +560,10 @@ def serve_path(card: str) -> dict:
     return launches
 
 
-def train_path(card: str, arch: str) -> dict:
+def train_path(card: str, arch: str) -> tuple[dict, dict]:
     """``train`` for TRAIN_STEPS steps at full width; ms/step over steps 2-4
-    (each step ends in the loss drain's sync: log_every_steps = 1)."""
+    (each step ends in the loss drain's sync: log_every_steps = 1). Returns
+    the launch counts and the recorded kernel calls."""
     from hdenseunet_tpu_torch.core.config import Config
     from hdenseunet_tpu_torch.data.sampler import synthetic_batches
     from hdenseunet_tpu_torch.train.trainer import train
@@ -391,7 +593,8 @@ def train_path(card: str, arch: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    train(cfg, timed(), max_steps=TRAIN_STEPS, device="cuda", log_fn=lambda *a: None)
+    with recorded_calls() as calls:
+        train(cfg, timed(), max_steps=TRAIN_STEPS, device="cuda", log_fn=lambda *a: None)
     torch.cuda.synchronize()
     end = time.perf_counter()
     launches = read_counts()
@@ -415,7 +618,7 @@ def train_path(card: str, arch: str) -> dict:
         f"{[round(v, 5) for v in losses]}, launches {launches} "
         f"(K1 forward {launches['affine_relu'] // steps}/step) [{card}]"
     )
-    return launches
+    return launches, calls
 
 
 def model_check(card: str) -> float:
@@ -500,11 +703,17 @@ def main() -> None:
     k1 = check_k1(card)
     k1_bwd = check_k1_backward(card)
     k2_fwd, k2_bwd = check_k2(card)
-    paths = {
-        "serve": serve_path(card),
-        "train_end2end": train_path(card, "end2end"),
-        "train_2d": train_path(card, "2d"),
-    }
+    check_back_to_back(card)
+    paths, calls = {"serve": serve_path(card)}, {}
+    for arch in ("end2end", "2d"):
+        paths[f"train_{arch}"], calls[f"train_{arch}"] = train_path(card, arch)
+    k1_bwd.update(sweep_k1_backward(card, calls["train_end2end"]["k1"], TRAIN_STEPS))
+    k1_bwd["steps"] = {"train_end2end": dict(
+        launches=BSR_2D, ms=k1_bwd["step_ms"], bound_ms=k1_bwd["step_bound_ms"])}
+    for numbers, steps in zip((k2_fwd, k2_bwd), sweep_k2(
+            card, {path: found["k2"] for path, found in calls.items()}, TRAIN_STEPS)):
+        numbers.update(steps=steps, step_ms=steps["train_end2end"]["ms"],
+                       step_bound_ms=steps["train_end2end"]["bound_ms"])
     model_check(card)
     train_check(card)
     kernels = []
@@ -520,6 +729,7 @@ def main() -> None:
             "source": f"hdenseunet_tpu_torch/csrc/{source}",
             "replaces": f"hdenseunet_tpu/ops/{replaces}",
             "launches": paths["train_end2end"][name],
+            "launches_per_step": paths["train_end2end"][name] // TRAIN_STEPS,
             "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             **numbers,
             "library_ms": None,  # no single PyTorch call computes the same function

@@ -6,8 +6,8 @@ PyTorch's headers takes minutes). One ``nvcc`` per source runs at once, then
 one links the objects. The library lands in ``build/`` at the root
 of the checkout, named by a hash of the sources and flags, so an unchanged
 tree reuses it and a changed one rebuilds. It is loaded with ``ctypes``; each
-wrapper declares the argument types of the functions it calls, and raises
-through :func:`check` when a launch returns an error.
+wrapper declares the argument types of the functions it calls once, and
+calls one through :func:`run`, which raises when a launch returns an error.
 """
 from __future__ import annotations
 
@@ -107,6 +107,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     lib.hdu_error_string.argtypes = [ctypes.c_int]
     lib.hdu_error_string.restype = ctypes.c_char_p
+    lib.hdu_scratch_bytes.argtypes = []
+    lib.hdu_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -114,3 +116,36 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed: {library().hdu_error_string(rc).decode()}")
+
+
+# (device index, raw stream) -> (buffer, its address): csrc/common.cuh
+_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
+
+
+def _scratch(index: int, stream: int) -> int:
+    """Address of the kernels' scratch buffer for one device and stream:
+    ``hdu_scratch_bytes()`` bytes, zeroed when made. Each launch that takes a
+    last-block ticket leaves its counters at zero again, so the buffer is
+    made once and no call needs a memset; one per stream, because launches
+    that share it must not overlap."""
+    found = _SCRATCH.get((index, stream))
+    if found is None:
+        buf = torch.zeros(library().hdu_scratch_bytes(), dtype=torch.uint8,
+                          device=torch.device("cuda", index))
+        found = _SCRATCH[(index, stream)] = (buf, buf.data_ptr())
+    return found[1]
+
+
+def run(entry, what: str, t: torch.Tensor, *args, scratch: bool = False) -> None:
+    """``entry(*args[, scratch], stream)`` on CUDA tensor t's device and its
+    current stream; raise if the launch returns an error. With ``scratch``
+    the entry point also gets that stream's scratch buffer. The device is
+    made current only when it is not already."""
+    index = t.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return run(entry, what, t, *args, scratch=scratch)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if scratch:
+        args = (*args, _scratch(index, stream))
+    check(entry(*args, stream), what)

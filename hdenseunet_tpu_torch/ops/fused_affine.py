@@ -63,12 +63,17 @@ def affine_relu_reference(x, scale, shift, *, relu: bool = True):
 def rows_contiguous(x) -> bool:
     """True when x, with channels on axis 1, is channels-last contiguous,
     i.e. its memory is a (rows, C) matrix."""
+    if x.dim() == 4:
+        return x.is_contiguous(memory_format=torch.channels_last)
+    if x.dim() == 5:
+        return x.is_contiguous(memory_format=torch.channels_last_3d)
     return x.dim() >= 2 and x.movedim(1, -1).is_contiguous()
 
 
 def vector_path(x, *others) -> bool:
-    """Whether the 16-byte vector path may run: C a multiple of the vector
-    width and every pointer 16-byte aligned (csrc/fused_affine.cu)."""
+    """Whether the kernels take their 16-byte vector path, by the rule their
+    entry points apply (csrc/fused_affine.cu): C a multiple of the vector
+    width and every pointer 16-byte aligned."""
     vec = 16 // x.element_size()
     return x.shape[1] % vec == 0 and all(t.data_ptr() % 16 == 0 for t in (x, *others))
 
@@ -80,17 +85,13 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def _lib():
     """The built library with the argument types of K1's entry points."""
     lib = build.library()
-    lib.hdu_affine_relu.argtypes = [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]
-    lib.hdu_affine_relu_bwd_workspace.argtypes = [_LL, _I, _I, _I]
-    lib.hdu_affine_relu_bwd_workspace.restype = _LL
-    lib.hdu_affine_relu_bwd.argtypes = [
-        _P, _P, _P, _P, _P, _P, _LL, _P, _P, _LL, _I, _I, _I, _I, _P,
-    ]
+    lib.hdu_affine_relu.argtypes = [_P, _P, _P, _P, _LL, _I, _I, _I, _P]
+    lib.hdu_affine_relu_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P]
     return lib
 
 
 def _check_cuda(name, x):
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype not in build.DTYPE_CODES:
         raise TypeError(f"{name}: kernel takes float32 or bfloat16, got {x.dtype}")
@@ -99,6 +100,13 @@ def _check_cuda(name, x):
             f"{name}: kernel needs a channels-last contiguous tensor, got "
             f"shape {tuple(x.shape)} strides {x.stride()}"
         )
+
+
+def _f32_vector(v, x):
+    """v as a contiguous float32 vector on x's device: v itself when it is one."""
+    if v.dtype == torch.float32 and v.is_contiguous() and v.get_device() == x.get_device():
+        return v
+    return v.to(device=x.device, dtype=torch.float32).contiguous()
 
 
 def affine_relu(x, scale, shift, *, relu: bool = True):
@@ -111,25 +119,21 @@ def affine_relu(x, scale, shift, *, relu: bool = True):
     kernel rounds scale and shift to x.dtype as it reads them, so float32
     vectors on x's device reach it without a copy.
     """
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return affine_relu_reference(x, scale, shift, relu=relu)
     _check_cuda("affine_relu", x)
     c = x.shape[1]
-    if tuple(scale.shape) != (c,) or tuple(shift.shape) != (c,):
+    if scale.shape != (c,) or shift.shape != (c,):
         raise ValueError(f"affine_relu: scale/shift must be ({c},)")
-    a = scale.to(device=x.device, dtype=torch.float32).contiguous()
-    b = shift.to(device=x.device, dtype=torch.float32).contiguous()
+    a, b = _f32_vector(scale, x), _f32_vector(shift, x)
     y = torch.empty_like(x)  # keeps x's channels-last strides
     if x.numel() == 0:
         return y
-    with torch.cuda.device(x.device):
-        rc = _lib().hdu_affine_relu(
-            x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-            x.numel() // c, c, build.DTYPE_CODES[x.dtype], int(relu),
-            int(vector_path(x, y, a, b)),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    build.check(rc, "affine_relu")
+    build.run(
+        _lib().hdu_affine_relu, "affine_relu", x,
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
+        x.numel() // c, c, build.DTYPE_CODES[x.dtype], relu,
+    )
     affine_relu.launches += 1
     return y
 
@@ -162,39 +166,37 @@ def affine_relu_backward(g, x, scale, y, *, relu: bool = True):
 
     g, x, y share a shape and dtype, channels on axis 1. A CPU tensor takes
     :func:`affine_relu_backward_reference`. A CUDA tensor launches K1's
-    backward and counts the launch in ``affine_relu_backward.launches``, or
-    raises: g, x and y must then be channels-last contiguous.
+    backward, one kernel, and counts the launch in
+    ``affine_relu_backward.launches``, or raises: g, x and y must then be
+    channels-last contiguous on one device.
     """
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return affine_relu_backward_reference(g, x, scale, y, relu=relu)
-    for name, t in (("g", g), ("x", x)) + ((("y", y),) if relu else ()):
-        _check_cuda(f"affine_relu_backward ({name})", t)
-        if t.shape != x.shape or t.dtype != x.dtype:
-            raise ValueError(f"affine_relu_backward: {name} does not match x")
+    _check_cuda("affine_relu_backward", x)
+    for name, t in (("g", g), ("y", y)) if relu else (("g", g),):
+        if (t.shape != x.shape or t.dtype != x.dtype or t.get_device() != x.get_device()
+                or not rows_contiguous(t)):
+            raise ValueError(
+                f"affine_relu_backward: {name} must match x in shape, dtype and device, "
+                "channels-last contiguous"
+            )
     c = x.shape[1]
-    if tuple(scale.shape) != (c,):
+    if scale.shape != (c,):
         raise ValueError(f"affine_relu_backward: scale must be ({c},)")
-    a = scale.to(device=x.device, dtype=torch.float32).contiguous()
+    a = _f32_vector(scale, x)
     dx = torch.empty_like(x)
-    dscale = torch.empty((c,), dtype=torch.float32, device=x.device)
-    dshift = torch.empty((c,), dtype=torch.float32, device=x.device)
+    grads = torch.empty((2, c), dtype=torch.float32, device=x.device)  # dscale, dshift
     rows = x.numel() // c
     if rows == 0:
-        return dx, dscale.zero_(), dshift.zero_()
-    dtype = build.DTYPE_CODES[x.dtype]
-    vec = int(vector_path(x, g, dx, *((y,) if relu else ())))
-    lib = _lib()
-    n_ws = lib.hdu_affine_relu_bwd_workspace(rows, c, dtype, vec)
-    with torch.cuda.device(x.device):
-        workspace = torch.empty((n_ws,), dtype=torch.float32, device=x.device)
-        rc = lib.hdu_affine_relu_bwd(
-            g.data_ptr(), x.data_ptr(), y.data_ptr() if relu else None, a.data_ptr(),
-            dx.data_ptr(), workspace.data_ptr(), n_ws, dscale.data_ptr(), dshift.data_ptr(),
-            rows, c, dtype, int(relu), vec, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    build.check(rc, "affine_relu_backward")
+        return (dx, *grads.zero_())
+    build.run(
+        _lib().hdu_affine_relu_bwd, "affine_relu_backward", x,
+        g.data_ptr(), x.data_ptr(), y.data_ptr() if relu else None, a.data_ptr(),
+        dx.data_ptr(), grads.data_ptr(), rows, c, build.DTYPE_CODES[x.dtype], relu,
+        scratch=True,
+    )
     affine_relu_backward.launches += 1
-    return dx, dscale, dshift
+    return (dx, *grads)
 
 
 affine_relu_backward.launches = 0

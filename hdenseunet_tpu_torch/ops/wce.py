@@ -36,9 +36,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def _lib():
     """The built library with the argument types of K2's entry points."""
     lib = build.library()
-    lib.hdu_wce_fwd_workspace.argtypes = [_LL]
-    lib.hdu_wce_fwd_workspace.restype = _LL
-    lib.hdu_wce_fwd.argtypes = [_P, _P, _P, _P, _P, _LL, _P, _LL, _I, _I, _P]
+    lib.hdu_wce_fwd.argtypes = [_P, _P, _P, _P, _P, _LL, _I, _I, _P, _P]
     lib.hdu_wce_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P]
     return lib
 
@@ -78,7 +76,7 @@ def weighted_ce_backward_reference(logits2, labels1, mask1, weights, cnt, g):
 
 
 def _check(logits2, labels1, mask1, weights):
-    if logits2.device.type != "cuda":
+    if not logits2.is_cuda:
         raise ValueError(f"weighted_ce: unsupported device {logits2.device}")
     if logits2.dtype not in build.DTYPE_CODES:
         raise TypeError(f"weighted_ce: kernel takes float32 or bfloat16 logits, got {logits2.dtype}")
@@ -101,26 +99,21 @@ def _check(logits2, labels1, mask1, weights):
 def wce_forward(logits2, labels1, mask1, weights):
     """(loss, sum of the mask) as float32 scalars; arguments as in
     :func:`weighted_ce_reference`. A CPU tensor takes the plain version. A
-    CUDA tensor launches K2's forward and counts the launch in
+    CUDA tensor launches K2's forward, one kernel, and counts the launch in
     ``wce_forward.launches``, or raises: labels int32, mask and weights
     float32, all contiguous."""
-    if logits2.device.type == "cpu":
+    if logits2.is_cpu:
         return weighted_ce_reference(logits2, labels1, mask1, weights)
     _check(logits2, labels1, mask1, weights)
     n, c = logits2.shape
     if n == 0:
         raise ValueError("weighted_ce: no rows")
     out = torch.empty((2,), dtype=torch.float32, device=logits2.device)
-    lib = _lib()
-    n_ws = lib.hdu_wce_fwd_workspace(n)
-    with torch.cuda.device(logits2.device):
-        workspace = torch.empty((n_ws,), dtype=torch.float32, device=logits2.device)
-        rc = lib.hdu_wce_fwd(
-            logits2.data_ptr(), labels1.data_ptr(), mask1.data_ptr(), weights.data_ptr(),
-            workspace.data_ptr(), n_ws, out.data_ptr(), n, c, build.DTYPE_CODES[logits2.dtype],
-            torch.cuda.current_stream(logits2.device).cuda_stream,
-        )
-    build.check(rc, "wce_forward")
+    build.run(
+        _lib().hdu_wce_fwd, "wce_forward", logits2,
+        logits2.data_ptr(), labels1.data_ptr(), mask1.data_ptr(), weights.data_ptr(),
+        out.data_ptr(), n, c, build.DTYPE_CODES[logits2.dtype], scratch=True,
+    )
     wce_forward.launches += 1
     return out[0], out[1]
 
@@ -133,7 +126,7 @@ def wce_backward(logits2, labels1, mask1, weights, cnt, g):
     logits' device (no host round trip). A CPU tensor takes the plain
     version; a CUDA tensor launches K2's backward and counts the launch in
     ``wce_backward.launches``, or raises."""
-    if logits2.device.type == "cpu":
+    if logits2.is_cpu:
         return weighted_ce_backward_reference(logits2, labels1, mask1, weights, cnt, g)
     _check(logits2, labels1, mask1, weights)
     cnt = cnt.to(torch.float32).contiguous()
@@ -142,13 +135,12 @@ def wce_backward(logits2, labels1, mask1, weights, cnt, g):
         raise ValueError("wce_backward: cnt and g must be scalars on the logits' device")
     n, c = logits2.shape
     dlogits = torch.empty_like(logits2)
-    with torch.cuda.device(logits2.device):
-        rc = _lib().hdu_wce_bwd(
-            logits2.data_ptr(), labels1.data_ptr(), mask1.data_ptr(), weights.data_ptr(),
-            cnt.data_ptr(), g.data_ptr(), dlogits.data_ptr(), n, c,
-            build.DTYPE_CODES[logits2.dtype], torch.cuda.current_stream(logits2.device).cuda_stream,
-        )
-    build.check(rc, "wce_backward")
+    build.run(
+        _lib().hdu_wce_bwd, "wce_backward", logits2,
+        logits2.data_ptr(), labels1.data_ptr(), mask1.data_ptr(), weights.data_ptr(),
+        cnt.data_ptr(), g.data_ptr(), dlogits.data_ptr(), n, c,
+        build.DTYPE_CODES[logits2.dtype],
+    )
     wce_backward.launches += 1
     return dlogits
 

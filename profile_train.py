@@ -14,8 +14,14 @@ name and power limit:
 2. per stage, one step under ``torch.profiler``: device time by kernel,
    device busy time, the device's idle share of the step wall, device events
    per step, the share of the port's own kernels (K1 forward and backward,
-   K2 forward and backward), and the host's operators by self CPU time;
-3. the end2end step with the kernels against the step with their plain
+   K2 forward and backward) and each of them by name, the host's operators
+   by self CPU time, and the host self time of the port's four autograd
+   wrappers per call;
+3. the host time per call of each of the port's four kernel wrappers alone,
+   at one end2end step shape, with the card held busy so that no call waits
+   on it: the wrapper's Python, ctypes and launch cost, which the profiler's
+   self time of the autograd wrappers mixes with remat's recompute;
+4. the end2end step with the kernels against the step with their plain
    PyTorch versions, in turns (plain, kernels, kernels, plain per pair). The
    plain versions are switched on here only, by pointing the wrappers'
    module names at them; the package itself has no such switch. The launch
@@ -36,6 +42,8 @@ import torch
 from chip_smoke import SEED, card_line
 
 OWN = ("affine_relu", "wce_")  # name fragments of the port's CUDA kernels
+# the profiler's names of the port's autograd Functions and their backwards
+WRAPPERS = ("AffineReLU", "AffineReLUBackward", "WeightedCE", "WeightedCEBackward")
 
 
 def make_state(arch: str):
@@ -97,14 +105,62 @@ def profile_step(state, cfg, batch, arch: str, card: str, trace: str | None) -> 
     )
     for name, (n, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f} % x{n:<6d} {name[:110]}")
-    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:12]
+    print(f"  the port's kernels (profiled step) [{card}]:")
+    for name, (n, ms) in sorted(by_kernel.items()):
+        if any(f in name for f in OWN):
+            print(f"  {ms:9.3f} ms x{n:<6d} {name[:110]}")
+    averages = prof.key_averages()
     print(f"  host ops by self CPU time (profiled step) [{card}]:")
-    for a in host:
+    for a in sorted(averages, key=lambda a: -a.self_cpu_time_total)[:12]:
         print(f"  {a.self_cpu_time_total / 1e3:9.2f} ms x{a.count:<6d} {a.key[:100]}")
+    print(f"  the port's wrappers, host self time (profiled step) [{card}]:")
+    for a in averages:
+        if a.key in WRAPPERS:
+            print(f"  {a.self_cpu_time_total / 1e3:9.2f} ms x{a.count:<6d} "
+                  f"{a.self_cpu_time_total / a.count:8.1f} us/call {a.key}")
     if trace:
         path = f"{trace}.{arch}.json"
         prof.export_chrome_trace(path)
         print(f"trace: {path}")
+
+
+def wrapper_host_us(card: str, calls: int = 200) -> None:
+    """Host microseconds per call of K1 forward and backward on a
+    channels-last 64x192x7x7 bf16 tensor (block 4's bottleneck BN) and of
+    K2 forward and backward on 401,408 rows, while a sleep kernel holds the
+    stream, so that the host never waits on the card."""
+    from hdenseunet_tpu_torch.ops import fused_affine as K, wce as W
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((64, 7, 7, 192), device="cuda", generator=gen).to(torch.bfloat16).movedim(-1, 1)
+    g = torch.randn((64, 7, 7, 192), device="cuda", generator=gen).to(torch.bfloat16).movedim(-1, 1)
+    a, b = torch.rand(192, device="cuda", generator=gen), torch.randn(192, device="cuda", generator=gen)
+    y = K.affine_relu(x, a, b)
+    n = 8 * 224 * 224
+    logits = torch.randn((n, 3), device="cuda", generator=gen).to(torch.bfloat16)
+    labels = torch.randint(0, 3, (n,), device="cuda", generator=gen, dtype=torch.int32)
+    mask, w = torch.ones(n, device="cuda"), torch.tensor((0.78, 0.65, 8.57), device="cuda")
+    _, cnt = W.wce_forward(logits, labels, mask, w)
+    one = torch.ones((), device="cuda")
+    wrappers = {
+        "affine_relu": lambda: K.affine_relu(x, a, b),
+        "affine_relu_backward": lambda: K.affine_relu_backward(g, x, a, y),
+        "wce_forward": lambda: W.wce_forward(logits, labels, mask, w),
+        "wce_backward": lambda: W.wce_backward(logits, labels, mask, w, cnt, one),
+    }
+    us = {}
+    for name, fn in wrappers.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)  # ~50 ms: longer than the calls take to queue
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us[name] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    print(f"wrapper host time per call, card held busy, {calls} calls each: "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in us.items()) + f" [{card}]")
 
 
 @contextlib.contextmanager
@@ -133,6 +189,7 @@ def main() -> None:
     print(f"card: {card}; torch {torch.__version__}; cuda {torch.version.cuda}")
     from hdenseunet_tpu_torch.ops import fused_affine as K
 
+    wrapper_host_us(card)
     for arch in ("end2end", "2d"):
         state, cfg, batch = make_state(arch)
         step_times(state, cfg, batch, 2)  # warm-up: cuDNN's first calls

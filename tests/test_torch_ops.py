@@ -77,7 +77,7 @@ def test_plain_matches_jax_pallas_interpret(jax_ops, rows, c, dtype, relu):
 
 @pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("c", [35, 36, 96])
+@pytest.mark.parametrize("c", [35, 36, 96, 192, 2208])
 def test_plain_backward_matches_jax_vjp(jax_ops, c, dtype, relu):
     """The port's closed-form backward, given JAX's own forward output y,
     against jax.vjp through the interpret-mode Pallas kernel and its custom
@@ -203,6 +203,11 @@ def test_library_path_names_the_sources_hash():
 WEIGHTS = (0.78, 0.65, 8.57)
 
 
+def _weights(c):
+    """WEIGHTS and, past three classes, smaller weights of their own."""
+    return WEIGHTS + tuple(0.5 + 0.25 * k for k in range(c - 3))
+
+
 def _wce_case(n, c=3, seed=0, masked=True):
     rng = np.random.default_rng(seed)
     logits = rng.normal(0, 3, (n, c)).astype(np.float32)
@@ -224,18 +229,23 @@ def jax_wce():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,masked", [(2048, False), (3000, True), (5, True)])
-def test_plain_wce_matches_jax_pallas_interpret(jax_wce, n, masked, dtype):
+@pytest.mark.parametrize(
+    "n,masked,c",
+    [(2048, False, 3), (3000, True, 3), (5, True, 3), (3001, True, 3), (3001, True, 8)],
+    ids=["2048-False", "3000-True", "5-True", "3001-True", "3001-True-c8"],
+)
+def test_plain_wce_matches_jax_pallas_interpret(jax_wce, n, masked, c, dtype):
     import jax
     import jax.numpy as jnp
 
-    logits, labels, mask = _wce_case(n, masked=masked, seed=n)
+    logits, labels, mask = _wce_case(n, c, masked=masked, seed=n)
+    weights = _weights(c)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     lj, yj, mj = jnp.asarray(logits, jdt), jnp.asarray(labels), jnp.asarray(mask)
-    loss_j = float(jax_wce.weighted_ce(lj, yj, mj, WEIGHTS, True))
-    grad_j = jax.grad(lambda l: jax_wce.weighted_ce(l, yj, mj, WEIGHTS, True))(lj)
+    loss_j = float(jax_wce.weighted_ce(lj, yj, mj, weights, True))
+    grad_j = jax.grad(lambda l: jax_wce.weighted_ce(l, yj, mj, weights, True))(lj)
     lt = torch.from_numpy(logits).to(tdt).requires_grad_()
-    loss_t = W.weighted_ce(lt, torch.from_numpy(labels), torch.from_numpy(mask), WEIGHTS)
+    loss_t = W.weighted_ce(lt, torch.from_numpy(labels), torch.from_numpy(mask), weights)
     loss_t.backward()
     # float32 sums of n terms in another order (the Pallas kernel sums tiles)
     assert abs(loss_t.item() - loss_j) <= 2e-6 * abs(loss_j)
@@ -245,7 +255,7 @@ def test_plain_wce_matches_jax_pallas_interpret(jax_wce, n, masked, dtype):
     # the same float32 closed form, rounded once to the logits' dtype; exp
     # differs by an ulp between the libraries, which p - 1 exposes in full
     eps = float(torch.finfo(tdt).eps)
-    atol = 4 * 2.0**-23 * max(WEIGHTS) / mask.sum()
+    atol = 4 * 2.0**-23 * max(weights) / mask.sum()
     np.testing.assert_allclose(got, want, rtol=eps if dtype == "bfloat16" else 1e-5, atol=atol)
 
 
@@ -386,6 +396,135 @@ def test_cuda_wce_matches_plain(cuda, n, dtype):
     bound = eps * d_p.float().abs() + 8 * 2.0**-23 * float(g) * 8.57 / float(cnt_p)
     assert bool(((d.float() - d_p.float()).abs() <= bound).all())
     assert torch.equal(W.wce_forward(logits, labels, mask, w)[0], loss)  # no atomics
+
+
+def _device_kernels(fn) -> int:
+    """Kernels the card runs for one call of fn, counted by torch.profiler,
+    after a first call (which may make the stream's scratch buffer)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+
+
+def _k1_backward_case(device, rows, c, dtype, relu=True, seed=0):
+    """(g, x, scale, y) as (rows, C) matrices on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (2 * torch.randn((rows, c), device=device, generator=gen)).to(dtype)
+    g = torch.randn((rows, c), device=device, generator=gen).to(dtype)
+    scale = 1 + 0.5 * torch.randn(c, device=device, generator=gen)
+    shift = 0.5 * torch.randn(c, device=device, generator=gen)
+    return g, x, scale, K.affine_relu_reference(x, scale, shift, relu=relu)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "rows,c",
+    [
+        (5, 96),  # fewer rows than one block's row step
+        (5, 2208),
+        (37, 36),  # C % 8 != 0: scalar path
+        (1003, 36),  # rows not a multiple of the unrolled row step
+        (1003, 96),
+        (4099, 2208),  # nine channel tiles in bf16, eighteen in fp32
+    ],
+)
+def test_cuda_backward_edges_exact_and_deterministic(cuda, rows, c, dtype, relu):
+    g, x, scale, y = _k1_backward_case(cuda, rows, c, dtype, relu, seed=rows + c)
+    if relu:
+        y[rows // 2, c // 3] = float("nan")  # masks its gradient, as jnp.where(y > 0)
+    want = K.affine_relu_backward_reference(g, x, scale, y, relu=relu)
+    runs = [K.affine_relu_backward(g, x, scale, y, relu=relu) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], want[0])  # dx = g*A rounded once in both
+    assert _k1_backward_bound(runs[0], want, g, x, dtype)
+    for again in runs[1:]:  # a fixed summation order: the same bits
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+
+
+def test_cuda_back_to_back_calls_leave_their_counters_at_zero(cuda):
+    """Calls of other shapes queued back to back share the stream's scratch
+    counters (K1's backward one per channel tile, K2's forward one): each
+    gives the plain version's answer, and the sequence run again the same
+    bits, only if every last block set its counter back to zero."""
+    cases = [
+        _k1_backward_case(cuda, rows, c, torch.bfloat16, seed=c)
+        for rows, c in ((4099, 2208), (1003, 96), (777, 36))
+    ]
+    logits, labels, mask = (torch.from_numpy(a).to(cuda) for a in _wce_case(3001, seed=5))
+    w = torch.tensor(WEIGHTS, device=cuda)
+
+    def sequence():
+        out = []
+        for g, x, scale, y in cases:
+            out += [K.affine_relu_backward(g, x, scale, y), W.wce_forward(logits, labels, mask, w)]
+        return out
+
+    first, second = sequence(), sequence()
+    torch.cuda.synchronize()
+    for (g, x, scale, y), got in zip(cases, first[0::2]):
+        want = K.affine_relu_backward_reference(g, x, scale, y)
+        assert torch.equal(got[0], want[0])
+        assert _k1_backward_bound(got, want, g, x, torch.bfloat16)
+    loss_p, cnt_p = W.weighted_ce_reference(logits, labels, mask, w)
+    for loss, cnt in first[1::2]:
+        assert float(cnt) == float(cnt_p)
+        assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    for a, b in zip(first, second):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_cuda_each_call_is_one_kernel(cuda):
+    g, x, scale, y = _k1_backward_case(cuda, 4099, 2208, torch.bfloat16, seed=3)
+    assert _device_kernels(lambda: K.affine_relu(x, scale, scale)) == 1
+    assert _device_kernels(lambda: K.affine_relu_backward(g, x, scale, y)) == 1
+    logits, labels, mask = (torch.from_numpy(a).to(cuda) for a in _wce_case(3001, seed=4))
+    w = torch.tensor(WEIGHTS, device=cuda)
+    _, cnt = W.wce_forward(logits, labels, mask, w)
+    one = torch.ones((), device=cuda)
+    assert _device_kernels(lambda: W.wce_forward(logits, labels, mask, w)) == 1
+    assert _device_kernels(lambda: W.wce_backward(logits, labels, mask, w, cnt, one)) == 1
+
+
+def _wce_agrees(logits, labels, mask, w, g):
+    """K2 forward and backward against their plain versions: the mask's sum
+    exact, the loss within float32 sums of n terms in other orders, dlogits
+    within the same float32 closed form (exp/log within 2 ulps) rounded once,
+    and no gradient on the clip-active row 0."""
+    loss, cnt = W.wce_forward(logits, labels, mask, w)
+    loss_p, cnt_p = W.weighted_ce_reference(logits, labels, mask, w)
+    d = W.wce_backward(logits, labels, mask, w, cnt, g)
+    d_p = W.weighted_ce_backward_reference(logits, labels, mask, w, cnt_p, g)
+    torch.cuda.synchronize()
+    assert float(cnt) == float(cnt_p)
+    assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    eps = torch.finfo(logits.dtype).eps
+    bound = eps * d_p.float().abs() + 8 * 2.0**-23 * float(g) * float(w.max()) / float(cnt_p)
+    assert bool(((d.float() - d_p.float()).abs() <= bound).all())
+    assert not d[0].any()
+    assert torch.equal(W.wce_forward(logits, labels, mask, w)[0], loss)  # no atomics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 4, 8])
+@pytest.mark.parametrize("n", [5, 8, 3001, 3_211_264])
+def test_cuda_wce_row_groups_and_classes(cuda, n, c, dtype):
+    """Rows 8 at a time with a tail of n % 8 rows, for 3, 4 and 8 classes."""
+    logits, labels, mask = (torch.from_numpy(a).to(cuda) for a in _wce_case(n, c, seed=n + c))
+    w = torch.tensor(_weights(c), device=cuda)
+    _wce_agrees(logits.to(dtype), labels, mask, w, torch.tensor(0.7, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wce_unaligned_logits_take_the_row_path(cuda, dtype):
+    logits, labels, mask = (torch.from_numpy(a).to(cuda) for a in _wce_case(3001, seed=6))
+    flat = torch.empty(logits.numel() + 1, dtype=dtype, device=cuda)
+    shifted = flat[1:].view(logits.shape)  # one element past 16-byte alignment
+    shifted.copy_(logits)
+    _wce_agrees(shifted, labels, mask, torch.tensor(WEIGHTS, device=cuda), torch.tensor(1.0, device=cuda))
 
 
 def test_cuda_kernel_raises_on_layout_and_dtype(cuda):
