@@ -24,21 +24,37 @@ failure exits non-zero):
    K1-backward and K2 call; each class of shape is then held against the
    plain version and timed alone with the L2 cache flushed, and the step's
    summed kernel time is printed against its summed bound;
-6. model-level checks of the kernel paths: the tiny-preset scorer, and one
+6. the CLI path: ``hdenseunet_tpu_torch.cli.main`` in this process, in a
+   temporary directory under build/ that it removes: synth-data (two
+   512x512x64 volumes), train 2d (4 steps, checkpoints), train end2end
+   warm-started from the 2D checkpoint (4 steps, a save every 2), the same
+   run resumed (2 steps), test on one 512x512x64 NIfTI volume from the
+   end2end checkpoint, and evaluate; full preset, bfloat16, batch 8 of
+   real guided crops (224x224 slabs, 224x224x8 sub-volumes) through the
+   CropSampler (8 crop threads) and the prefetch pipeline. It checks the
+   launches of each command, the warm start (every 2D layer loaded, none
+   skipped), the resume (the restored state equals the saved one bit for
+   bit) and the labelmap, and times the steps next to phase 5's synthetic
+   feed, the sampler alone, the saves and restores, and the test volume;
+7. model-level checks of the kernel paths: the tiny-preset scorer, and one
    tiny end2end train step, in float32 on the CPU (plain versions) and on
    the card (kernels), TF32 off;
 then a JSON line describing the kernels, and the last line
 {"ok": true, "device": {...}}.
 
-Each path of phases 4-5 runs with every launch counter set to 0 just before
+Each path of phases 4-6 runs with every launch counter set to 0 just before
 it and read just after, and fails if a kernel of that path did not launch.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
+import re
+import shutil
 import subprocess
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -69,6 +85,9 @@ TRAIN_UPDATE_RTOL = 5e-2
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TRAIN_STEPS = 4
+CLI_SHAPE = (512, 512, 64)  # LiTS in-plane size; 64 slices
+CLI_STEPS, CLI_RESUME_STEPS = 4, 2
+LAYERS_2D = 493  # layers of the full 2D DenseUNet, every one named in the hybrid
 BSR_2D = 161  # bn_scale_relu calls per 2D-branch forward (full preset)
 REMAT_2D = 156  # of them inside the 78 rematerialised conv blocks
 BUILD = Path(__file__).resolve().parent / "build"
@@ -563,7 +582,7 @@ def serve_path(card: str) -> dict:
 def train_path(card: str, arch: str) -> tuple[dict, dict]:
     """``train`` for TRAIN_STEPS steps at full width; ms/step over steps 2-4
     (each step ends in the loss drain's sync: log_every_steps = 1). Returns
-    the launch counts and the recorded kernel calls."""
+    the launch counts, the recorded kernel calls and the ms/step."""
     from hdenseunet_tpu_torch.core.config import Config
     from hdenseunet_tpu_torch.data.sampler import synthetic_batches
     from hdenseunet_tpu_torch.train.trainer import train
@@ -618,7 +637,200 @@ def train_path(card: str, arch: str) -> tuple[dict, dict]:
         f"{[round(v, 5) for v in losses]}, launches {launches} "
         f"(K1 forward {launches['affine_relu'] // steps}/step) [{card}]"
     )
-    return launches, calls
+    return launches, calls, ms
+
+
+@contextlib.contextmanager
+def cli_clock():
+    """Note the host clock at every ``trainer.train_step`` call, and the
+    span and bytes of every ``Checkpointer.save`` and ``restore_latest``;
+    a restore also keeps the snapshot of the state it restored."""
+    from hdenseunet_tpu_torch.train import checkpoint as C, trainer as T
+
+    marks = {"steps": [], "saves": [], "restores": []}
+    step, save, restore = T.train_step, C.Checkpointer.save, C.Checkpointer.restore_latest
+
+    def timed_step(*args, **kwargs):
+        marks["steps"].append(time.perf_counter())
+        return step(*args, **kwargs)
+
+    def timed_save(self, at, state, metric=None):
+        writes = int(at) > max(self.all_steps(), default=-1)  # else save skips it
+        t0 = time.perf_counter()
+        save(self, at, state, metric=metric)
+        if writes:
+            size = (self.dir / f"step-{int(at)}.pt").stat().st_size
+            marks["saves"].append((t0, time.perf_counter() - t0, size))
+
+    def timed_restore(self, state):
+        steps = C.step_files(self.dir)
+        t0 = time.perf_counter()
+        out = restore(self, state)
+        torch.cuda.synchronize()
+        if out is not None:
+            marks["restores"].append(
+                (time.perf_counter() - t0, steps[max(steps)].stat().st_size, C.snapshot(out)))
+        return out
+
+    T.train_step, C.Checkpointer.save, C.Checkpointer.restore_latest = timed_step, timed_save, timed_restore
+    try:
+        yield marks
+    finally:
+        T.train_step, C.Checkpointer.save, C.Checkpointer.restore_latest = step, save, restore
+
+
+def step_ms(marks: dict) -> list[float]:
+    """ms from each step's start to the next one's in the same run, less
+    any save between the two: steps 1 to n-1 (the first pays first-call
+    costs)."""
+    starts, out = marks["steps"], []
+    for a, b in zip(starts, starts[1:]):
+        saved = sum(d for t, d, _ in marks["saves"] if a < t < b)
+        out.append((b - a - saved) * 1e3)
+    return out
+
+
+def run_cli(argv: list[str]):
+    """(what cli.main returns, its standard output), with that output also
+    echoed with a prefix, its launch counts set to 0 just before."""
+    from hdenseunet_tpu_torch import cli
+
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        result = cli.main(argv)
+    torch.cuda.synchronize()
+    for line in out.getvalue().splitlines():
+        print(f"  | {line}")
+    return result, out.getvalue()
+
+
+def payloads_equal(a: dict, b: dict) -> bool:
+    if a.keys() != b.keys():
+        return False
+    for k, v in a.items():
+        w = b[k]
+        if isinstance(v, dict):
+            if not payloads_equal(v, w):
+                return False
+        elif isinstance(v, torch.Tensor):
+            if not torch.equal(v, w):
+                return False
+        elif v != w:
+            return False
+    return True
+
+
+def sampler_rate(prep: Path, mode: str, threads: int = 8, batches: int = 6) -> float:
+    """Samples/s of CropSampler.batches(8, threads) over the prepared data,
+    after one batch to warm the page cache and the pool."""
+    from hdenseunet_tpu_torch.core.config import DataConfig
+    from hdenseunet_tpu_torch.data.preprocess import PreparedDataset
+    from hdenseunet_tpu_torch.data.sampler import CropSampler
+
+    gen = CropSampler(PreparedDataset(prep), DataConfig(), mode=mode, seed=SEED).batches(8, threads=threads)
+    next(gen)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(gen)
+    rate = 8 * batches / (time.perf_counter() - t0)
+    gen.close()
+    return rate
+
+
+def cli_path(card: str, synthetic_ms: dict) -> dict:
+    """The staged workflow through the port's CLI at full width (phase 6).
+    Returns the launch counts of each command."""
+    from hdenseunet_tpu_torch.core import params as P
+    from hdenseunet_tpu_torch.data import nifti
+    from hdenseunet_tpu_torch.train import checkpoint as C
+
+    BUILD.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=BUILD))
+    try:
+        prep, ck2d, cke = root / "prep", root / "ck2d", root / "cke"
+        t0 = time.perf_counter()
+        run_cli(["synth-data", "--out", str(prep), "--num-volumes", "2",
+                 "--shape", ",".join(map(str, CLI_SHAPE)), "--seed", str(SEED)])
+        synth_s = time.perf_counter() - t0
+        rates = {mode: sampler_rate(prep, mode) for mode in ("hybrid", "2d")}
+        print(f"cli: synth-data 2 x {CLI_SHAPE} in {synth_s:.1f} s; CropSampler alone, 8 crop threads, "
+              f"batch 8: {rates['hybrid']:.1f} samples/s of 224x224x8, {rates['2d']:.1f} samples/s "
+              f"of 224x224x3 [{card}]")
+
+        common = ["--data", str(prep), "--batch", "8", "--set", "model.compute_dtype", "bfloat16",
+                  "--set", "train.log_every_steps", "1"]
+        launches, timing = {}, {}
+        with cli_clock() as marks:
+            state2d, _ = run_cli(["train", "--arch", "2d", "--max-steps", str(CLI_STEPS),
+                                  "--checkpoint-dir", str(ck2d),
+                                  "--set", "train.save_path", str(root / "exp2d"), *common])
+        launches["cli_train_2d"], timing["2d"] = read_counts(), (step_ms(marks), marks)
+        assert state2d.step == CLI_STEPS and len(P.layers(state2d.model)) == LAYERS_2D
+        assert launches["cli_train_2d"] == {"affine_relu": 0, "affine_relu_backward": 0,
+                                            "wce_forward": CLI_STEPS, "wce_backward": CLI_STEPS}
+        del state2d
+
+        with cli_clock() as marks:
+            state, text = run_cli(["train", "--arch", "end2end", "--max-steps", str(CLI_STEPS),
+                                   "--checkpoint-dir", str(cke), "--init-from", str(ck2d),
+                                   "--set", "train.checkpoint_every_steps", "2",
+                                   "--set", "train.save_path", str(root / "expe"), *common])
+        launches["cli_train_end2end"], timing["end2end"] = read_counts(), (step_ms(marks), marks)
+        m = re.search(r"warm start: (\d+) layers loaded, (\d+) skipped, (\d+) shape-mismatched", text)
+        assert m and tuple(map(int, m.groups())) == (LAYERS_2D, 0, 0), text
+        per_step = {"affine_relu": BSR_2D + REMAT_2D, "affine_relu_backward": BSR_2D,
+                    "wce_forward": 1, "wce_backward": 1}
+        assert launches["cli_train_end2end"] == {k: n * CLI_STEPS for k, n in per_step.items()}
+        assert C.Checkpointer(cke).all_steps() == [2, CLI_STEPS] and state.step == CLI_STEPS
+        saved = C.snapshot(state)
+        del state
+
+        with cli_clock() as marks:
+            state, text = run_cli(["train", "--arch", "end2end", "--max-steps", str(CLI_RESUME_STEPS),
+                                   "--checkpoint-dir", str(cke), "--resume",
+                                   "--set", "train.save_path", str(root / "expe"), *common])
+        launches["cli_train_resume"], timing["resume"] = read_counts(), (step_ms(marks), marks)
+        assert f"resumed from step {CLI_STEPS}" in text, text
+        (restore_s, restore_bytes, restored), = marks["restores"]
+        assert payloads_equal(restored, saved), "the restored state differs from the saved one"
+        assert launches["cli_train_resume"] == {k: n * CLI_RESUME_STEPS for k, n in per_step.items()}
+        assert state.step == CLI_STEPS + CLI_RESUME_STEPS
+        del state, saved, restored
+
+        dirs = {d: root / d for d in ("tv", "tm", "truth")}
+        for d in dirs.values():
+            d.mkdir()
+        vol = np.load(prep / "volumes" / "volume-0.npy")
+        seg = np.load(prep / "segmentations" / "segmentation-0.npy")
+        nifti.write(dirs["tv"] / "test-volume-0.nii", vol)
+        nifti.write(dirs["tm"] / "0-ori.nii", (seg >= 1).astype(np.int16))
+        nifti.write(dirs["truth"] / "segmentation-0.nii", seg)
+        seconds, _ = run_cli(["test", "--data", str(dirs["tv"]), "--livermask", str(dirs["tm"]),
+                              "--weights", str(cke), "--save-path", str(root / "res"),
+                              "--num-volumes", "1", "--set", "model.compute_dtype", "bfloat16"])
+        launches["cli_test"] = read_counts()
+        assert launches["cli_test"]["affine_relu"] > 0 and launches["cli_test"]["affine_relu_backward"] == 0
+        assert launches["cli_test"]["wce_forward"] == launches["cli_test"]["wce_backward"] == 0
+        out, _ = nifti.read(root / "res" / "test-segmentation-0.nii")
+        out = np.asarray(out)
+        assert out.shape == vol.shape and set(np.unique(out).tolist()) <= {0, 1, 2}, np.unique(out)
+        _, text = run_cli(["evaluate", "--pred", str(root / "res"), "--truth", str(dirs["truth"]),
+                           "--num-volumes", "1"])
+        assert "mean per-case Dice" in text
+
+        for stage, (ms, marks) in timing.items():
+            arch = "2d" if stage == "2d" else "end2end"
+            saves = [(round(d, 3), b) for _, d, b in marks["saves"]]
+            print(f"cli train {stage}: real feed {[round(v, 1) for v in ms]} ms/step (steps 1 to "
+                  f"{len(ms)}, saves taken out) against the synthetic feed's {synthetic_ms[arch]:.1f} "
+                  f"ms/step (phase 5, {arch}, steps 2-4); saves (s, bytes) {saves} [{card}]")
+        print(f"cli resume: restore {restore_s:.3f} s of {restore_bytes} bytes, bit-identical to the "
+              f"saved state; test: {[round(s, 3) for s in seconds]} s/volume {CLI_SHAPE}, launches "
+              f"{launches['cli_test']} [{card}]")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def model_check(card: str) -> float:
@@ -704,9 +916,10 @@ def main() -> None:
     k1_bwd = check_k1_backward(card)
     k2_fwd, k2_bwd = check_k2(card)
     check_back_to_back(card)
-    paths, calls = {"serve": serve_path(card)}, {}
+    paths, calls, synthetic_ms = {"serve": serve_path(card)}, {}, {}
     for arch in ("end2end", "2d"):
-        paths[f"train_{arch}"], calls[f"train_{arch}"] = train_path(card, arch)
+        paths[f"train_{arch}"], calls[f"train_{arch}"], synthetic_ms[arch] = train_path(card, arch)
+    paths.update(cli_path(card, synthetic_ms))
     k1_bwd.update(sweep_k1_backward(card, calls["train_end2end"]["k1"], TRAIN_STEPS))
     k1_bwd["steps"] = {"train_end2end": dict(
         launches=BSR_2D, ms=k1_bwd["step_ms"], bound_ms=k1_bwd["step_bound_ms"])}

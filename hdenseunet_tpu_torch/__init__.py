@@ -2,23 +2,28 @@
 
 The JAX package beside it is the reference: every module here mirrors the
 name of its JAX counterpart and is tested against it on the same weights and
-inputs. Ported so far: the serving path and the training path.
+inputs. Ported so far: the serving path, the training path and the staged
+training workflow behind the command line (``python -m hdenseunet_tpu_torch``).
 
-core     typed config, seeded initializers, the parameter bridge from the
-         JAX pytree
+cli      synth-data, preprocess, train, test, evaluate
+core     typed config, seeded initializers, the parameter bridge to and
+         from the JAX pytree
 ops      K1, the fused frozen BN∘Scale∘ReLU with its backward
          (csrc/fused_affine.cu), K2, the weighted cross-entropy forward and
          backward (csrc/wce.cu), and the nvcc/ctypes build of csrc/
 models   layer kit (inference and training semantics), 2D DenseUNet-167,
          3D DenseUNet, H-DenseUNet hybrid and its stage masks
 infer    device-resident sliding-window scorer, volume predictor, host
-         postprocess
-train    losses, SGD-Nesterov with staged freezing, the trainer
-data     NIfTI IO, synthetic training batches
-native   the host postprocess's C++ core (g++, ctypes)
+         postprocess, metrics
+train    losses, SGD-Nesterov with staged freezing, the trainer, checkpoints
+data     NIfTI IO, offline preparation, the guided crop sampler, the
+         prefetch pipeline, synthetic training batches
+native   the sampler's and the host postprocess's C++ cores (g++, ctypes)
+weights  warm-start weights by layer name
 utils    the NaN guard of the training loop
 
-The config, NIfTI IO, host postprocess and its native core are the port's
-own copies of the JAX package's framework-free files. Nothing here imports
+The config, NIfTI IO, offline preparation, metrics, host postprocess and
+both native cores are the port's own copies of the JAX package's
+framework-free files. Nothing here imports
 JAX or the JAX package.
 """

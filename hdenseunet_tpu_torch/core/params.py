@@ -13,14 +13,18 @@ walk. Only conv kernels change layout:
 
 Parameters map to ``nn.Parameter``s and ``state`` (BN moving statistics) to
 buffers. The map is a bijection: :func:`from_numpy` raises on any layer,
-leaf or shape that is missing on either side. Checkpoints written by
-hdenseunet_tpu/weights/convert.py (``load_npz_checkpoint``) load the same way.
+leaf or shape that is missing on either side, and :func:`to_numpy` is its
+inverse. Checkpoints written by hdenseunet_tpu/weights/convert.py
+(``load_npz_checkpoint``) load the same way, and the port's own checkpoints
+and warm starts speak this layout too.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..models import layers as L
 
 _TO_TORCH = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 _TO_JAX = {4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
@@ -92,9 +96,36 @@ def from_numpy(model: nn.Module, params, state) -> nn.Module:
     for name, layer in layers(model).items():
         for leaf, t in leaves(layer).items():
             src = params[name][leaf] if leaf in params.get(name, {}) else state[name][leaf]
-            arr = np.array(src, dtype=np.float32)  # a writable host copy
-            if leaf == "kernel" and arr.ndim in _TO_TORCH:
-                arr = np.ascontiguousarray(arr.transpose(_TO_TORCH[arr.ndim]))
-            t.copy_(torch.from_numpy(arr))
-    return model
+            t.copy_(to_torch_layout(leaf, src))
+    return L.unfreeze_bn_scale(model)  # a serving fold of the old weights is stale
+
+
+def to_jax_layout(leaf: str, t: torch.Tensor) -> np.ndarray:
+    """One leaf as a float32 host array of its own, in JAX layout."""
+    arr = t.detach().to("cpu", torch.float32, copy=True).numpy()
+    if leaf == "kernel" and arr.ndim in _TO_JAX:
+        arr = np.ascontiguousarray(arr.transpose(_TO_JAX[arr.ndim]))
+    return arr
+
+
+def to_torch_layout(leaf: str, arr) -> torch.Tensor:
+    """Inverse of :func:`to_jax_layout`: a float32 CPU tensor of its own."""
+    arr = np.array(arr, dtype=np.float32)
+    if leaf == "kernel" and arr.ndim in _TO_TORCH:
+        arr = np.ascontiguousarray(arr.transpose(_TO_TORCH[arr.ndim]))
+    return torch.from_numpy(arr)
+
+
+@torch.no_grad()
+def to_numpy(model: nn.Module):
+    """The JAX ``(params, state)`` pytree of model, float32 numpy arrays in
+    JAX layout: the inverse of :func:`from_numpy`."""
+    params: dict = {}
+    state: dict = {}
+    for name, layer in layers(model).items():
+        for leaf, t in layer.named_parameters(recurse=False):
+            params.setdefault(name, {})[leaf] = to_jax_layout(leaf, t)
+        for leaf, t in layer.named_buffers(recurse=False):
+            state.setdefault(name, {})[leaf] = to_jax_layout(leaf, t)
+    return params, state
 

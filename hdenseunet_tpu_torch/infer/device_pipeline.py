@@ -178,7 +178,7 @@ class DeviceVolumeScorer:
         arch: str = "end2end",
         compute_dtype: str = "float32",
         num_classes: int = 3,
-        device,
+        device="cuda",
     ):
         if getattr(cfg, "shared_2d", False):
             raise NotImplementedError("shared_2d scoring is not ported yet")

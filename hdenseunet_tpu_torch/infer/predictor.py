@@ -21,7 +21,7 @@ from .device_pipeline import DeviceVolumeScorer
 class VolumePredictor:
     """model + config -> callable volume segmenter on ``device``."""
 
-    def __init__(self, model, cfg, *, arch: str = "end2end", device):
+    def __init__(self, model, cfg, *, arch: str = "end2end", device="cuda"):
         if not cfg.infer.device_resident:
             raise NotImplementedError("the host-loop window predictor is not ported yet")
         if cfg.infer.device_postprocess:
@@ -63,7 +63,7 @@ def predict_directory(
     save_dir,
     num_volumes: int | None = None,
     arch: str = "end2end",
-    device,
+    device="cuda",
     log=print,
 ):
     """Segment ``test-volume-{i}.nii`` files, write labelmaps, report timing.

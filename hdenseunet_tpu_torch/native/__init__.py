@@ -1,12 +1,23 @@
-"""Native (C++) host postprocess, compiled on demand and bound with ctypes.
+"""Native (C++) host cores, compiled on demand and bound with ctypes.
 
-The port's copy of the postprocess half of hdenseunet_tpu/native/__init__.py:
-``postprocess.cpp`` (a copy of the JAX package's) runs the serving CC and
-morphology pipeline (test.py:70-115) as O(N) passes, byte-exact against the
-scipy twins in ``infer/postprocess.py``. It is compiled with ``g++`` into
-``build/native/`` at the root of the checkout, named by a hash of the source,
-apart from the JAX package's cache. Without a toolchain ``pp_available()`` is
-False and ``infer/postprocess.py`` takes the scipy path.
+The port's copy of hdenseunet_tpu/native/__init__.py, for two hot loops the
+reference leaves to python libraries:
+
+* ``sampler.cpp`` — the training sampler's crop, mean subtraction, flip/rot
+  augmentation and per-slice resize (Catmull-Rom cubic for images, nearest
+  for labels, cv2's INTER_CUBIC/INTER_NEAREST arithmetic) as one C call;
+* ``postprocess.cpp`` — the serving CC and morphology pipeline
+  (test.py:70-115) as O(N) passes, byte-exact against the scipy twins in
+  ``infer/postprocess.py``.
+
+Both sources are copies of the JAX package's. Each is compiled with ``g++``
+into ``build/native/`` at the root of the checkout, named by a hash of the
+source, apart from the JAX package's cache. ctypes releases the GIL for the
+length of each call, so crop threads run in parallel.
+
+Without a toolchain ``available()`` / ``pp_available()`` are False. The
+postprocess then takes its scipy path; the sampler has no other route to
+the 'cv2' resize family and refuses to run (``data/sampler.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +30,7 @@ from pathlib import Path
 
 import numpy as np
 
+_SRC = Path(__file__).parent / "sampler.cpp"
 _PP_SRC = Path(__file__).parent / "postprocess.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 
@@ -32,7 +44,7 @@ def _build(src: Path, stem: str) -> Path | None:
     try:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
     except OSError:
-        return None  # unusable build location -> scipy path
+        return None  # unusable build location -> no native core
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", str(tmp), str(src)]
     try:
@@ -41,6 +53,74 @@ def _build(src: Path, stem: str) -> Path | None:
         return None
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so
+
+
+@functools.cache
+def _load():
+    so = _build(_SRC, "sampler")
+    if so is None:
+        return None
+    lib = ctypes.CDLL(str(so))
+    L = ctypes.c_long
+    F = ctypes.c_float
+    I = ctypes.c_int
+    PF = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    PS = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+    lib.crop_aug_resize.argtypes = [PF, PS, L, L, L, L, L, L, L, L, L, F, I, L, PF, PS]
+    lib.crop_aug_resize.restype = None
+    lib.crop_aug.argtypes = [PF, PS, L, L, L, L, L, L, L, L, L, F, I, PF, PS]
+    lib.crop_aug.restype = None
+    return lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def _checked(vol, seg, origin, size):
+    """Contiguous float32/int16 copies of vol and seg, the origin and size
+    as ints, after checking that the crop lies inside the volume."""
+    vol = np.ascontiguousarray(vol, np.float32)
+    seg = np.ascontiguousarray(seg, np.int16)
+    origin = tuple(int(v) for v in origin)
+    size = tuple(int(v) for v in size)
+    if vol.ndim != 3 or seg.shape != vol.shape:
+        raise ValueError(f"vol {vol.shape} and seg {seg.shape} must be one (X, Y, Z) shape")
+    if any(o < 0 or s < 1 or o + s > n for o, s, n in zip(origin, size, vol.shape)):
+        raise ValueError(f"crop at {origin} of size {size} leaves the volume {vol.shape}")
+    return vol, seg, origin, size
+
+
+def crop_aug_resize(vol, seg, origin, size, *, mean, flip_case, out_size):
+    """Fused crop+augment+resize. vol (X,Y,Z) f32 C-order; seg int16.
+
+    Returns (image (out,out,cols) float32 mean-subtracted, labels int16).
+    """
+    lib = _load()
+    assert lib is not None, "native sampler unavailable"
+    vol, seg, (a, b, c), (deps, rows, cols) = _checked(vol, seg, origin, size)
+    out_img = np.empty((out_size, out_size, cols), np.float32)
+    out_seg = np.empty((out_size, out_size, cols), np.int16)
+    lib.crop_aug_resize(
+        vol, seg, *vol.shape, a, b, c, deps, rows, cols,
+        float(mean), int(flip_case), int(out_size), out_img, out_seg,
+    )
+    return out_img, out_seg
+
+
+def crop_aug(vol, seg, origin, size, *, mean, flip_case):
+    """Crop + flip/rot only (exact numpy-semantics oracle pair)."""
+    lib = _load()
+    assert lib is not None, "native sampler unavailable"
+    vol, seg, (a, b, c), (deps, rows, cols) = _checked(vol, seg, origin, size)
+    h2, w2 = (rows, deps) if 3 <= flip_case <= 6 else (deps, rows)
+    out_img = np.empty((h2, w2, cols), np.float32)
+    out_seg = np.empty((h2, w2, cols), np.int16)
+    lib.crop_aug(
+        vol, seg, *vol.shape, a, b, c, deps, rows, cols,
+        float(mean), int(flip_case), out_img, out_seg,
+    )
+    return out_img, out_seg
 
 
 @functools.cache

@@ -12,7 +12,8 @@ Stages (reference recipes):
 A step is forward, loss (K2), backward, the SGD update and the BN-state
 merge, all queued on the device without a host sync; ``train`` syncs only
 where it drains the losses, as the JAX loop does. The model, the optimizer
-and the moving statistics are updated in place.
+and the moving statistics are updated in place. ``train`` also takes the
+cross-stage warm start, checkpoints (``train/checkpoint.py``) and resume.
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ from ..core.initializers import init_model
 from ..models import denseunet2d, hybrid
 from ..models import layers as L
 from ..utils.guards import NaNGuard
+from ..weights.convert import match_to_model
+from . import checkpoint as ckpt_lib
 from .loss import weighted_crossentropy_2d, weighted_crossentropy_hybrid
 from .optimizer import make_optimizer
 
@@ -60,7 +63,7 @@ def build_model(cfg: Config, arch: str, *, device=None) -> torch.nn.Module:
     )
 
 
-def create_train_state(cfg: Config, arch: str | None = None, *, device, seed: int | None = None):
+def create_train_state(cfg: Config, arch: str | None = None, *, device="cuda", seed: int | None = None):
     """Model from the port's seeded initializer, the stage's optimizer,
     step 0 and the dropout generator, on ``device``."""
     arch = arch or cfg.train.arch
@@ -194,21 +197,34 @@ def train(
     resume: bool = False,
     init_weights: dict | None = None,
     log_fn=print,
-    device,
+    device="cuda",
 ):
-    """Host training loop on one device (trainer.py:265-406): host batches
-    -> device steps; losses drain (sync, NaN check, log) at
-    ``log_every_steps``, at each epoch end and at the end of the run.
-    Returns the final :class:`TrainState`.
+    """Host training loop on one device (trainer.py:265-406): host or
+    device batches -> device steps; losses drain (sync, NaN check, log) at
+    ``log_every_steps``, at each epoch end, before every checkpoint save and
+    at the end of the run. ``init_weights`` ({layer: {leaf: array}}) seeds
+    the model by layer name; with ``checkpoint_dir`` the state is saved
+    every ``checkpoint_every_steps`` and at the end, and ``resume`` first
+    restores the newest save there. Returns the final :class:`TrainState`.
     """
     if cfg.train.steps_per_dispatch > 1:
         raise NotImplementedError("steps_per_dispatch > 1 is a TPU dispatch lever, not ported")
-    if checkpoint_dir is not None or resume:
-        raise NotImplementedError("checkpointing and resume are not ported yet")
-    if init_weights is not None:
-        raise NotImplementedError("the cross-stage warm start is not ported yet")
     arch = cfg.train.arch
     state = create_train_state(cfg, arch, device=device)
+    if init_weights is not None:
+        # cross-stage warm start (reference: by-name/subgroup HDF5 loaders,
+        # topology.py:3107/:3171/:3250)
+        report = match_to_model(init_weights, state.model, strict_shapes=False)
+        log_fn(
+            f"warm start: {len(report['loaded'])} layers loaded, "
+            f"{len(report['skipped'])} skipped, "
+            f"{len(report['mismatched'])} shape-mismatched"
+        )
+    ckpt = None
+    if checkpoint_dir is not None:
+        ckpt = ckpt_lib.Checkpointer(checkpoint_dir)
+        if resume and ckpt.restore_latest(state) is not None:
+            log_fn(f"resumed from step {state.step}")
     slices = cfg.model.input_cols if arch != "2d" else 1
     metrics = MetricsLogger(cfg.train.save_path, slices_per_sample=slices)
     nan_guard = NaNGuard()
@@ -217,6 +233,8 @@ def train(
     pending: list = []  # device losses, fetched at the drain cadence only
 
     def drain(at_step: int):
+        """Sync, NaN-check and log every pending loss; always before a
+        save, so a poisoned state is never written."""
         for val in pending:
             v = float(val)
             nan_guard.check(v, at_step)
@@ -241,4 +259,10 @@ def train(
                 f"epoch {step // steps_per_epoch}: loss={stats['loss']:.4f} "
                 f"({stats['slices_per_sec_per_chip']:.1f} slices/s/chip)"
             )
+        if ckpt is not None and crossed(cfg.train.checkpoint_every_steps):
+            drain(step)
+            ckpt.save(state.step, state, metric=metrics.last_loss())
+    if ckpt is not None:
+        drain(step)
+        ckpt.save(state.step, state, metric=metrics.last_loss())
     return state

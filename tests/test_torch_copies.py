@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's framework-free files, held to
-their originals: the typed config, the NIfTI reader/writer and the host
-postprocess with its native core. Also: no import statement of the port,
+their originals: the typed config, the NIfTI reader/writer, the host
+postprocess with its native core, the offline preparation, the metrics and
+the sampler's native core. Also: no import statement of the port,
 nor of the scripts that drive it on the card, names JAX or the JAX package.
 """
 import ast
@@ -13,12 +14,12 @@ from scipy import ndimage
 
 from hdenseunet_tpu import native as j_native
 from hdenseunet_tpu.core import config as j_config
-from hdenseunet_tpu.data import nifti as j_nifti
-from hdenseunet_tpu.infer import postprocess as j_post
+from hdenseunet_tpu.data import nifti as j_nifti, preprocess as j_pre
+from hdenseunet_tpu.infer import metrics as j_metrics, postprocess as j_post
 from hdenseunet_tpu_torch import native as t_native
 from hdenseunet_tpu_torch.core import config as t_config
-from hdenseunet_tpu_torch.data import nifti as t_nifti
-from hdenseunet_tpu_torch.infer import postprocess as t_post
+from hdenseunet_tpu_torch.data import nifti as t_nifti, preprocess as t_pre
+from hdenseunet_tpu_torch.infer import metrics as t_metrics, postprocess as t_post
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIG_CLASSES = ["DataConfig", "ModelConfig", "TrainConfig", "InferConfig", "Config"]
@@ -86,6 +87,90 @@ def test_native_build_is_apart_from_the_jax_packages():
     assert so.parent.parent == REPO / "build"
 
 
+def test_native_sampler_is_a_copy_built_apart_from_the_jax_packages():
+    assert t_native._SRC.read_bytes() == Path(j_native._SRC).read_bytes()
+    so = t_native._build(t_native._SRC, "sampler")
+    assert so is not None and so.parent == t_native.BUILD_DIR == REPO / "build" / "native"
+    assert t_native.available()
+    rng = np.random.default_rng(1)
+    vol = rng.normal(0, 100, (40, 36, 10)).astype(np.float32)
+    seg = rng.integers(0, 3, vol.shape).astype(np.int16)
+    kw = dict(mean=48.0, flip_case=5, out_size=48)
+    got = t_native.crop_aug_resize(vol, seg, (3, 2, 1), (30, 30, 8), **kw)
+    want = j_native.crop_aug_resize(vol, seg, (3, 2, 1), (30, 30, 8), **kw)
+    assert all(g.tobytes() == w.tobytes() for g, w in zip(got, want))
+
+
+def _tree_bytes(root: Path) -> dict:
+    """{relative path: array bytes} of every .npy and every array of every
+    .npz under root."""
+    out = {}
+    for p in sorted(root.rglob("*.np[yz]")):
+        rel = str(p.relative_to(root))
+        if p.suffix == ".npy":
+            a = np.load(p)
+            out[rel] = (a.dtype.str, a.shape, a.tobytes())
+        else:
+            with np.load(p) as z:
+                for k in z.files:
+                    out[f"{rel}:{k}"] = (z[k].dtype.str, z[k].shape, z[k].tobytes())
+    return out
+
+
+@pytest.mark.parametrize("fn", ["synthesize", "run", "extract_coords", "clip_hu"])
+def test_preprocess_equals_the_original(tmp_path, fn):
+    rng = np.random.default_rng(2)
+    if fn == "synthesize":
+        for mod, out in ((t_pre, "port"), (j_pre, "jax")):
+            mod.synthesize(tmp_path / out, num_volumes=2, shape=(40, 36, 12), seed=3)
+    elif fn == "run":
+        raw = tmp_path / "raw"
+        raw.mkdir()
+        for i in range(2):
+            vol = rng.normal(0, 300, (20, 18, 6)).astype(np.float32)
+            t_nifti.write(raw / f"volume-{i}.nii", vol)
+            t_nifti.write(raw / f"segmentation-{i}.nii", rng.integers(0, 3, vol.shape).astype(np.int16))
+        for mod, out in ((t_pre, "port"), (j_pre, "jax")):
+            mod.run(raw, tmp_path / out, num_volumes=2, log=lambda *_: None)
+    if fn in ("synthesize", "run"):
+        got, want = _tree_bytes(tmp_path / "port"), _tree_bytes(tmp_path / "jax")
+        assert got.keys() == want.keys() and len(got) == 2 * (2 + 4) and got == want
+        ds_t, ds_j = t_pre.PreparedDataset(tmp_path / "port"), j_pre.PreparedDataset(tmp_path / "jax")
+        assert ds_t.indices == ds_j.indices == [0, 1]
+        assert np.array_equal(ds_t.volume(1), ds_j.volume(1))
+    elif fn == "extract_coords":
+        seg = rng.integers(0, 3, (12, 10, 8)).astype(np.int16)
+        for box in ("liver", "any"):
+            got, want = t_pre.extract_coords(seg, box_labels=box), j_pre.extract_coords(seg, box_labels=box)
+            assert got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in got)
+        empty = np.zeros((4, 5, 6), np.int16)
+        assert np.array_equal(t_pre.extract_coords(empty)["box_max"], j_pre.extract_coords(empty)["box_max"])
+    else:
+        vol = rng.normal(0, 400, (9, 8, 7))
+        assert t_pre.clip_hu(vol).tobytes() == j_pre.clip_hu(vol).tobytes()
+
+
+@pytest.mark.parametrize(
+    "fn", ["dice", "dice_per_class", "global_dice", "voe", "rvd", "metrics_per_class"]
+)
+def test_metrics_equal_the_original(fn):
+    rng = np.random.default_rng(3)
+    a = [rng.integers(0, 3, (10, 9, 8)) for _ in range(3)]
+    b = [rng.integers(0, 3, (10, 9, 8)) for _ in range(3)]
+    empty = np.zeros((10, 9, 8), np.int64)
+    cases = {
+        "dice": [(a[0] >= 1, b[0] >= 1), (empty, empty)],
+        "voe": [(a[0] == 2, b[0] == 2), (empty, empty)],
+        "rvd": [(a[1] == 2, b[1] == 2), (a[1], empty), (empty, empty)],
+        "dice_per_class": [(a[0], b[0]), (empty, b[1])],
+        "metrics_per_class": [(a[2], b[2]), (empty, empty)],
+        "global_dice": [(a, b), ([empty], [empty])],
+    }[fn]
+    for args in cases:
+        got, want = getattr(t_metrics, fn)(*args), getattr(j_metrics, fn)(*args)
+        assert got == want, (fn, got, want)
+
+
 @pytest.mark.parametrize("writer", ["jax", "port"])
 @pytest.mark.parametrize(
     "dtype,suffix", [(np.int16, ".nii"), (np.float32, ".nii.gz"), (np.uint8, ".nii")]
@@ -113,7 +198,8 @@ def _forbidden(name: str) -> bool:
 
 
 @pytest.mark.parametrize(
-    "script", ["chip_smoke.py", "profile_serving.py", "profile_train.py", "hdenseunet_tpu_torch"]
+    "script",
+    ["chip_smoke.py", "profile_serving.py", "profile_train.py", "profile_feed.py", "hdenseunet_tpu_torch"],
 )
 def test_no_import_statement_names_jax(script):
     """Every import statement, nested ones included, of the port's files and

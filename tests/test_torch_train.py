@@ -424,11 +424,22 @@ def test_nan_batch_raises(tmp_path):
      ("checkpoint_dir", "ck"), ("resume", True), ("init_weights", {})],
 )
 def test_unported_training_options_raise(tmp_path, field, value):
+    """The TPU levers raise. Checkpoints, resume and the warm start have
+    been ported since, and the loop now takes them (test_torch_checkpoint.py
+    and test_torch_cli.py test what they do)."""
     pcfg = _loop_cfg(tmp_path)
     kwargs = {}
     if field in ("checkpoint_dir", "resume", "init_weights"):
-        kwargs[field] = value
-    elif field == "layout3d":
+        kwargs[field] = str(tmp_path / value) if field == "checkpoint_dir" else value
+        logged = []
+        state = T.train(pcfg, iter(()), max_steps=1, device="cpu", log_fn=logged.append, **kwargs)
+        assert state.step == 0
+        if field == "checkpoint_dir":
+            assert (tmp_path / value / "step-0.pt").is_file()
+        if field == "init_weights":  # a warm start from nothing loads nothing
+            assert logged == ["warm start: 0 layers loaded, 0 skipped, 0 shape-mismatched"]
+        return
+    if field == "layout3d":
         pcfg.model.layout3d = value
     else:
         setattr(pcfg.train, field, value)
