@@ -16,7 +16,21 @@ failure exits non-zero):
    to back give the plain answers and the same bits when repeated (each
    kernel's last block resets the counter it took a ticket from);
 4. the serving path: VolumePredictor.segment on two synthetic 512x512x96 CT
-   volumes, full-preset H-DenseUNet in bfloat16 with seeded random weights;
+   volumes, full-preset H-DenseUNet in bfloat16 with seeded random weights,
+   host CC postprocess (native/postprocess.cpp); then
+   - serve_dpp: the same volumes with ``device_postprocess`` (the CC
+     postprocess on the card, K4), sparse wire on and off: labelmaps
+     byte-identical to the host postprocess's, K4's launches per volume
+     (2 largest components, 3 hole fills, one prep, one finish), peak memory
+     and s/volume beside the host path's;
+   - one volume each through the per-window path (``dedup_2d=False``), the
+     shared-2D mode and the uint8 wire: probabilities finite in [0, 1],
+     times; the uint8 wire's labelmap equal to the host path's;
+   - K4 (cc_label 26 and 6, largest_component, fill_holes, compose_prep,
+     compose_finish) against its plain versions on the card and
+     native/postprocess.cpp at 512x512x112 (random masks at four densities,
+     an ellipsoid liver with a tumour) and on the first volume's real
+     thresholded labelmask, with times, bounds and kernels per call;
 5. the training path: ``train`` for 4 end2end steps at full width (global
    batch 8 of 224x224x8 sub-volumes, bfloat16, remat), then 4 steps of the
    2D stage at bench.py's configuration (batch 8 of 224x224 slabs). A
@@ -36,13 +50,15 @@ failure exits non-zero):
    skipped), the resume (the restored state equals the saved one bit for
    bit) and the labelmap, and times the steps next to phase 5's synthetic
    feed, the sampler alone, the saves and restores, and the test volume;
-7. model-level checks of the kernel paths: the tiny-preset scorer, and one
-   tiny end2end train step, in float32 on the CPU (plain versions) and on
-   the card (kernels), TF32 off;
+7. model-level checks of the kernel paths: the tiny-preset scorer in each
+   scoring path (dedup-2D, per-window, shared-2D) and its uint8-wire
+   labelmask, and one tiny end2end train step, in float32 on the CPU (plain
+   versions) and on the card (kernels), TF32 off;
 then a JSON line describing the kernels, and the last line
 {"ok": true, "device": {...}}.
 
-Each path of phases 4-6 runs with every launch counter set to 0 just before
+Each path of phases 4-6 (serve, serve_dpp, serve_dpp_dense, serve_per_window,
+serve_shared_2d, serve_uint8, train_*, cli_*) runs with every launch counter set to 0 just before
 it and read just after, and fails if a kernel of that path did not launch.
 """
 from __future__ import annotations
@@ -91,6 +107,12 @@ LAYERS_2D = 493  # layers of the full 2D DenseUNet, every one named in the hybri
 BSR_2D = 161  # bn_scale_relu calls per 2D-branch forward (full preset)
 REMAT_2D = 156  # of them inside the 78 rematerialised conv blocks
 BUILD = Path(__file__).resolve().parent / "build"
+K12_NAMES = ("affine_relu", "affine_relu_backward", "wce_forward", "wce_backward")
+K4_NAMES = ("cc_label", "largest_component", "fill_holes", "compose_prep", "compose_finish")
+K4_SHAPE = (512, 512, 112)  # LiTS in-plane size, 112 slices
+# K4 launches per served volume as compose_labels makes them: 2 largest
+# components and 3 hole fills, each labelling once, one prep and one finish
+K4_PER_VOLUME = dict(cc_label=5, largest_component=2, fill_holes=3, compose_prep=1, compose_finish=1)
 
 
 def card_line() -> str:
@@ -139,11 +161,12 @@ def cold_ms(fn, iters: int = 10) -> float:
     return sum(start.elapsed_time(end) for start, end in marks) / iters
 
 
-def kernels_per_call(fn) -> int | None:
+def kernels_per_call(fn, expect: int = 1) -> int | None:
     """Kernels the card runs for one call of fn, counted by torch.profiler
     (host and device activities), after a first call (which may make the
-    stream's scratch buffer). None when three profiles in a row return no
-    device event at all: the profiler saw nothing, not even the kernel."""
+    stream's scratch buffer); it must be ``expect``. None when three
+    profiles in a row return no device event at all: the profiler saw
+    nothing, not even the kernel."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -153,8 +176,8 @@ def kernels_per_call(fn) -> int | None:
             torch.cuda.synchronize()
         names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         if names:
-            assert len(names) == 1, f"one call ran {len(names)} kernels: {names}"
-            return 1
+            assert len(names) == expect, f"one call ran {len(names)} kernels: {names}"
+            return expect
     print("  kernels per call: not measured, the profiler returned no device event")
     return None
 
@@ -174,12 +197,18 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def counters() -> dict:
-    from hdenseunet_tpu_torch.ops import fused_affine as K, wce as W
+    from hdenseunet_tpu_torch.ops import cc, fused_affine as K, wce as W
 
     return {
         "affine_relu": K.affine_relu, "affine_relu_backward": K.affine_relu_backward,
         "wce_forward": W.wce_forward, "wce_backward": W.wce_backward,
+        **{name: getattr(cc, name) for name in K4_NAMES},
     }
+
+
+def only(**counts) -> dict:
+    """Launch counts with every kernel not named at 0."""
+    return {**dict.fromkeys(counters(), 0), **counts}
 
 
 def reset_counts() -> None:
@@ -570,13 +599,236 @@ def serve_path(card: str) -> dict:
     assert float(probs.min()) >= 0.0 and float(probs.max()) <= 1.0 + 1e-5
     counts = [np.bincount(lab.ravel(), minlength=3).tolist() for lab in labelmaps]
     host_pp = "native" if postprocess.native.pp_available() else "scipy"
+    assert all(launches[name] == 0 for name in K4_NAMES), launches
     print(
         f"serve path: 2 volumes {VOLUME_SHAPE} full preset bf16, {runs} window runs, "
         f"s/volume {[round(s, 3) for s in seconds]}, peak {peak / 2**30:.2f} GiB, "
         f"launches {launches} (K1 >= {bsr_per_forward} x {runs}), "
         f"label counts {counts}, host postprocess {host_pp} [{card}]"
     )
-    return launches
+    return dict(launches=launches, model=model, predictor=predictor, cases=cases, labelmaps=labelmaps,
+                seconds=seconds, peak=peak, k1_floor=bsr_per_forward * runs)
+
+
+def ellipsoid_case(shape):
+    """An ellipsoid liver with a hole inside, a spherical tumour in it, and
+    an external mask a little larger than the liver, bool (X, Y, Z)."""
+    x, y, z = np.ogrid[: shape[0], : shape[1], : shape[2]]
+    cx, cy, cz = shape[0] / 2, shape[1] / 2, shape[2] / 2
+
+    def ball(c, r):
+        return sum(((a - ca) / ra) ** 2 for a, ca, ra in zip((x, y, z), c, r)) <= 1
+
+    liver = ball((cx, cy, cz), (0.35 * shape[0], 0.3 * shape[1], 0.4 * shape[2]))
+    liver &= ~ball((cx + 40, cy - 30, cz), (6, 6, 4))  # an enclosed hole
+    liver[20:24, 30:34, 10:14] = True  # a rival speck
+    tumor = ball((cx - 30, cy + 20, cz + 5), (25, 25, 12))
+    ext = ball((cx, cy, cz), (0.37 * shape[0], 0.32 * shape[1], 0.42 * shape[2]))
+    return liver, tumor, ext
+
+
+def plain_compose(packed, ext_bits, pack_z: int):
+    """The compose through the plain versions only (device_postprocess with
+    every K4 call replaced by its *_reference): (labelmap, wire, bbox)."""
+    from hdenseunet_tpu_torch.ops import cc
+
+    liver, tumor, ext = cc.compose_prep_reference(packed, ext_bits, pack_z=pack_z)
+    liver_cc = cc.largest_component_reference(liver)
+    ext_cc = cc.fill_holes_reference(cc.largest_component_reference(ext))
+    tumor_final = cc.fill_holes_reference(tumor & ext_cc)
+    return cc.compose_finish_reference(cc.fill_holes_reference(liver_cc), tumor_final)
+
+
+def compose_inputs(liver, tumor, ext, pack_z: int):
+    """(packed scores {0,1,3}, ext bits) on the card from bool masks."""
+    packed = (liver | tumor).astype(np.uint8) + 2 * tumor.astype(np.uint8)
+    ext_bits = np.packbits(ext[:, :, :pack_z].astype(np.uint8), axis=2)
+    return torch.from_numpy(packed).cuda(), torch.from_numpy(ext_bits).cuda()
+
+
+def check_k4(card: str, serve: dict) -> dict:
+    """K4a-d on the card against their plain versions on the card and the
+    host's native/postprocess.cpp, at 512x512x112 (random masks at four
+    densities, an ellipsoid liver with a tumour) and on phase 4's real
+    thresholded labelmask; every kernel twice, the same bits both times.
+    Times at the ellipsoid case. Returns the JSON numbers per kernel."""
+    from hdenseunet_tpu_torch import native
+    from hdenseunet_tpu_torch.infer import device_postprocess as D, postprocess
+    from hdenseunet_tpu_torch.infer.device_pipeline import pack_labels
+    from hdenseunet_tpu_torch.ops import cc
+
+    assert native.pp_available(), "the host oracle native/postprocess.cpp did not build"
+    rng = np.random.default_rng(SEED + 6)
+    liver, tumor, ext = ellipsoid_case(K4_SHAPE)
+    masks = {f"random p={p}": rng.random(K4_SHAPE) < p for p in (0.05, 0.1, 0.3, 0.6)}
+    masks["ellipsoid liver"] = liver | tumor
+    mismatches = 0
+    for label, m in masks.items():
+        t = torch.from_numpy(m).cuda()
+        t0 = time.perf_counter()
+        for conn in (26, 6):
+            got = cc.cc_label(t, conn)
+            assert torch.equal(got, cc.cc_label(t, conn)), f"cc_label repeat differs at {label}"
+            assert torch.equal(got, cc.cc_label_reference(t, conn)), f"cc_label {conn} at {label}"
+        largest, fill = cc.largest_component(t), cc.fill_holes(t)
+        assert torch.equal(largest, cc.largest_component(t)) and torch.equal(fill, cc.fill_holes(t))
+        assert torch.equal(largest, cc.largest_component_reference(t)), f"largest at {label}"
+        assert torch.equal(fill, cc.fill_holes_reference(t)), f"fill at {label}"
+        assert np.array_equal(largest.cpu().numpy(), native.pp_largest_component(m)), label
+        assert np.array_equal(fill.cpu().numpy(), native.pp_fill_holes(m)), label
+        n_cc = int((cc.cc_label(t, 26).view(-1)[t.view(-1)].unique()).numel())
+        print(f"K4 {label} {K4_SHAPE}: {n_cc} components; cc_label (26, 6), largest_component, "
+              f"fill_holes equal their plain versions, native/postprocess.cpp and a repeat; "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+    # the compose: ellipsoid case at K4_SHAPE and phase 4's real labelmask
+    vol, ext_raw = serve["cases"][0]
+    predictor = serve["predictor"]
+    sc, icfg = predictor.windows, predictor.cfg.infer
+    ext_once, z_lo, z_hi = postprocess.liver_mask_extent(ext_raw)
+    plan = sc.plan(vol.shape, z_lo, z_hi)
+    with torch.inference_mode():
+        real = pack_labels(sc._score(vol - icfg.mean, plan), icfg.thres_liver, icfg.thres_tumor)
+    real_bits = sc._ext_bits(ext_once, plan, vol.shape)
+    compose_cases = {
+        "ellipsoid": (*compose_inputs(liver, tumor, ext, K4_SHAPE[2]), K4_SHAPE[2]),
+        "real labelmask": (real.clone(), real_bits, plan["zw"]),
+    }
+    for label, (packed, ext_bits, pack_z) in compose_cases.items():
+        labels, bbox = D.compose_final(packed, ext_bits, pack_z=pack_z)
+        wire = D.compose_packed(packed, ext_bits, pack_z=pack_z)
+        want = plain_compose(packed, ext_bits, pack_z)
+        assert torch.equal(labels, want[0]) and torch.equal(wire, want[1]), f"compose at {label}"
+        assert torch.equal(bbox, want[2]), (label, bbox, want[2])
+        x0, y0 = ext_bits.shape[:2]
+        m = packed[:x0, :y0, :pack_z].cpu().numpy()
+        ext_np = np.unpackbits(ext_bits.cpu().numpy(), axis=2)[:, :, :pack_z].astype(bool)
+        host = postprocess.compose_from_masks(m >= 1, m >= 3, ext_np)
+        assert np.array_equal(labels[:x0, :y0].cpu().numpy(), host), f"compose vs host at {label}"
+        print(f"K4 compose {label} {tuple(packed.shape[:2]) + (pack_z,)}: labelmap, 2-bit wire and "
+              f"bbox {bbox.tolist()} equal the plain compose and the host postprocess "
+              f"(native), label counts {np.bincount(host.ravel(), minlength=3).tolist()} [{card}]")
+        mismatches += int((labels != want[0]).sum())
+
+    # times at the ellipsoid case, the kernels' own inputs
+    packed, ext_bits, pack_z = compose_cases["ellipsoid"]
+    l_in, t_in, e_in = cc.compose_prep(packed, ext_bits, pack_z=pack_z)
+    n = l_in.numel()
+    calls = {  # name: (kernel, plain, bytes in + out, kernels per call)
+        "cc_label": (lambda: cc.cc_label(l_in), lambda: cc.cc_label_reference(l_in), 5 * n, 3),
+        "largest_component": (lambda: cc.largest_component(l_in),
+                              lambda: cc.largest_component_reference(l_in), 2 * n, 4),
+        "fill_holes": (lambda: cc.fill_holes(e_in), lambda: cc.fill_holes_reference(e_in), 2 * n, 4),
+        "compose_prep": (lambda: cc.compose_prep(packed, ext_bits, pack_z=pack_z),
+                         lambda: cc.compose_prep_reference(packed, ext_bits, pack_z=pack_z),
+                         n + n // 8 + 3 * n, 1),
+        "compose_finish": (lambda: cc.compose_finish(l_in, t_in),
+                           lambda: cc.compose_finish_reference(l_in, t_in), 2 * n + n + n // 4 + 24, 1),
+    }
+    out = {}
+    for name, (kernel, plain, n_bytes, per_call) in calls.items():
+        t = [cuda_ms(plain, iters=2, warmup=1), cuda_ms(kernel, iters=10), cuda_ms(kernel, iters=10),
+             cuda_ms(plain, iters=2, warmup=1)]
+        b = bound(n_bytes, 0)
+        out[name] = dict(max_abs_err=float(mismatches), ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+                         **b, kernels_per_call=kernels_per_call(kernel, per_call))
+        print(f"K4 {name} {K4_SHAPE}: kernel {out[name]['ms']:.4f} ms ({per_call} kernels), plain "
+              f"{out[name]['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
+    t_compose = [cuda_ms(lambda: D.compose_final(packed, ext_bits, pack_z=pack_z), iters=5)
+                 for _ in range(2)]
+    print(f"K4 whole compose_final {K4_SHAPE} ellipsoid: {min(t_compose):.3f} ms (7 calls, "
+          f"28 kernels) [{card}]")
+    return out
+
+
+def serve_dpp_path(card: str, serve: dict) -> dict:
+    """Phase 4's two volumes with device_postprocess on, sparse wire on and
+    off: labelmaps byte-identical to phase 4's host-postprocess ones, K4's
+    launches per volume as compose_labels makes them, peak memory beside
+    phase 4's. Returns the launch counts per path."""
+    import dataclasses
+
+    from hdenseunet_tpu_torch.core.config import Config
+    from hdenseunet_tpu_torch.infer.predictor import VolumePredictor
+
+    paths = {}
+    for path, sparse in (("serve_dpp", True), ("serve_dpp_dense", False)):
+        cfg = Config()
+        cfg.model.compute_dtype = "bfloat16"
+        cfg.infer = dataclasses.replace(cfg.infer, device_postprocess=True, sparse_wire=sparse)
+        predictor = VolumePredictor(serve["model"], cfg, arch="end2end", device="cuda")
+        predictor.segment(*serve["cases"][1])  # first calls of this predictor's shapes
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        seconds, labelmaps = [], []
+        for vol, ext in serve["cases"]:
+            t0 = time.perf_counter()
+            labelmaps.append(predictor.segment(vol, ext))
+            seconds.append(time.perf_counter() - t0)
+        launches = paths[path] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for got, want in zip(labelmaps, serve["labelmaps"]):
+            assert np.array_equal(got, want), f"{path}: the labelmap differs from the host postprocess's"
+        vols = len(serve["cases"])
+        assert all(launches[k] == n * vols for k, n in K4_PER_VOLUME.items()), launches
+        assert launches["affine_relu"] >= serve["k1_floor"], launches
+        # the compose's buffers: 3 bool masks, int32 labels and sizes, outputs
+        n = 512 * 512 * 128
+        assert peak <= serve["peak"] + 16 * n + 2**30, (peak, serve["peak"])
+        print(f"serve path {path} (device_postprocess, sparse_wire={sparse}): s/volume "
+              f"{[round(s, 3) for s in seconds]} against the host postprocess's "
+              f"{[round(s, 3) for s in serve['seconds']]}, labelmaps byte-identical, peak "
+              f"{peak / 2**30:.2f} GiB (host path {serve['peak'] / 2**30:.2f}), launches {launches} [{card}]")
+    return paths
+
+
+def serve_modes(card: str, serve: dict) -> dict:
+    """One full-width volume each through the per-window path
+    (dedup_2d=False), the shared-2D mode and the uint8 wire: probabilities
+    finite in [0, 1], s/volume; the uint8 wire's labelmap byte-identical to
+    phase 4's (the same scoring, another wire). Returns launches per path."""
+    import dataclasses
+
+    from hdenseunet_tpu_torch.core.config import Config
+    from hdenseunet_tpu_torch.infer import postprocess
+    from hdenseunet_tpu_torch.infer.predictor import VolumePredictor
+
+    paths = {}
+    vol, ext = serve["cases"][0]
+    _, z_lo, z_hi = postprocess.liver_mask_extent(ext)
+    for path, knobs in (("serve_per_window", dict(dedup_2d=False)),
+                        ("serve_shared_2d", dict(shared_2d=True)), ("serve_uint8", dict(wire_bits=8))):
+        cfg = Config()
+        cfg.model.compute_dtype = "bfloat16"
+        cfg.infer = dataclasses.replace(cfg.infer, **knobs)
+        predictor = VolumePredictor(serve["model"], cfg, arch="end2end", device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        seconds = []
+        for _ in range(2):  # the first pays the new shapes' first calls
+            t0 = time.perf_counter()
+            lab = predictor.segment(vol, ext)
+            seconds.append(time.perf_counter() - t0)
+        launches = paths[path] = read_counts()
+        assert launches["affine_relu"] > 0 and all(launches[k] == 0 for k in K4_NAMES), launches
+        probs = predictor.windows.score(vol - cfg.infer.mean, z_lo, z_hi)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predictor.windows.score(vol - cfg.infer.mean, z_lo, z_hi)
+        torch.cuda.synchronize()
+        scoring = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        assert bool(torch.isfinite(probs).all()), path
+        assert float(probs.min()) >= 0.0 and float(probs.max()) <= 1.0 + 1e-5, path
+        if path == "serve_uint8":
+            assert np.array_equal(lab, serve["labelmaps"][0]), "the uint8 wire's labelmap differs"
+        print(f"serve path {path} {knobs}: s/volume {[round(s, 3) for s in seconds]}, device scoring "
+              f"{scoring:.3f} s, peak {peak / 2**30:.2f} GiB, probabilities finite in [0, 1], "
+              f"label counts {np.bincount(lab.ravel(), minlength=3).tolist()} [{card}]")
+        del probs
+    return paths
 
 
 def train_path(card: str, arch: str) -> tuple[dict, dict]:
@@ -622,10 +874,10 @@ def train_path(card: str, arch: str) -> tuple[dict, dict]:
     assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
     steps = TRAIN_STEPS
     if arch == "end2end":
-        want = {"affine_relu": (BSR_2D + REMAT_2D) * steps, "affine_relu_backward": BSR_2D * steps,
-                "wce_forward": steps, "wce_backward": steps}
+        want = only(affine_relu=(BSR_2D + REMAT_2D) * steps, affine_relu_backward=BSR_2D * steps,
+                    wce_forward=steps, wce_backward=steps)
     else:
-        want = {"affine_relu": 0, "affine_relu_backward": 0, "wce_forward": steps, "wce_backward": steps}
+        want = only(wce_forward=steps, wce_backward=steps)
     assert launches == want, (arch, launches, want)
     ms = (end - asked[1]) / (steps - 1) * 1e3
     slices = cfg.train.batch * (cfg.model.input_cols if arch != "2d" else 1)
@@ -767,8 +1019,7 @@ def cli_path(card: str, synthetic_ms: dict) -> dict:
                                   "--set", "train.save_path", str(root / "exp2d"), *common])
         launches["cli_train_2d"], timing["2d"] = read_counts(), (step_ms(marks), marks)
         assert state2d.step == CLI_STEPS and len(P.layers(state2d.model)) == LAYERS_2D
-        assert launches["cli_train_2d"] == {"affine_relu": 0, "affine_relu_backward": 0,
-                                            "wce_forward": CLI_STEPS, "wce_backward": CLI_STEPS}
+        assert launches["cli_train_2d"] == only(wce_forward=CLI_STEPS, wce_backward=CLI_STEPS)
         del state2d
 
         with cli_clock() as marks:
@@ -781,7 +1032,7 @@ def cli_path(card: str, synthetic_ms: dict) -> dict:
         assert m and tuple(map(int, m.groups())) == (LAYERS_2D, 0, 0), text
         per_step = {"affine_relu": BSR_2D + REMAT_2D, "affine_relu_backward": BSR_2D,
                     "wce_forward": 1, "wce_backward": 1}
-        assert launches["cli_train_end2end"] == {k: n * CLI_STEPS for k, n in per_step.items()}
+        assert launches["cli_train_end2end"] == only(**{k: n * CLI_STEPS for k, n in per_step.items()})
         assert C.Checkpointer(cke).all_steps() == [2, CLI_STEPS] and state.step == CLI_STEPS
         saved = C.snapshot(state)
         del state
@@ -794,7 +1045,7 @@ def cli_path(card: str, synthetic_ms: dict) -> dict:
         assert f"resumed from step {CLI_STEPS}" in text, text
         (restore_s, restore_bytes, restored), = marks["restores"]
         assert payloads_equal(restored, saved), "the restored state differs from the saved one"
-        assert launches["cli_train_resume"] == {k: n * CLI_RESUME_STEPS for k, n in per_step.items()}
+        assert launches["cli_train_resume"] == only(**{k: n * CLI_RESUME_STEPS for k, n in per_step.items()})
         assert state.step == CLI_STEPS + CLI_RESUME_STEPS
         del state, saved, restored
 
@@ -811,7 +1062,7 @@ def cli_path(card: str, synthetic_ms: dict) -> dict:
                               "--num-volumes", "1", "--set", "model.compute_dtype", "bfloat16"])
         launches["cli_test"] = read_counts()
         assert launches["cli_test"]["affine_relu"] > 0 and launches["cli_test"]["affine_relu_backward"] == 0
-        assert launches["cli_test"]["wce_forward"] == launches["cli_test"]["wce_backward"] == 0
+        assert all(launches["cli_test"][k] == 0 for k in ("wce_forward", "wce_backward", *K4_NAMES))
         out, _ = nifti.read(root / "res" / "test-segmentation-0.nii")
         out = np.asarray(out)
         assert out.shape == vol.shape and set(np.unique(out).tolist()) <= {0, 1, 2}, np.unique(out)
@@ -834,6 +1085,12 @@ def cli_path(card: str, synthetic_ms: dict) -> dict:
 
 
 def model_check(card: str) -> float:
+    """The tiny fp32 scorer, card (kernels) against CPU (plain versions), in
+    each scoring path: the dedup-2D default, the per-window path and the
+    shared-2D mode; and the uint8 wire's labelmask at the default path's
+    thresholds."""
+    import dataclasses
+
     from hdenseunet_tpu_torch.core.config import InferConfig
     from hdenseunet_tpu_torch.core.initializers import init_model
     from hdenseunet_tpu_torch.infer.device_pipeline import DeviceVolumeScorer
@@ -842,18 +1099,38 @@ def model_check(card: str) -> float:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = InferConfig()
     cpu_model = init_model(HDenseUNet(preset="tiny"), SEED)
     gpu_model = copy.deepcopy(cpu_model)
     vol = np.random.default_rng(SEED).normal(0, 50, (64, 64, 28)).astype(np.float32)
-    want = DeviceVolumeScorer(cpu_model, cfg, device="cpu").score(vol, 4, 20).numpy()
-    before = affine_relu.launches
-    got = DeviceVolumeScorer(gpu_model, cfg, device="cuda").score(vol, 4, 20).cpu().numpy()
-    assert affine_relu.launches > before, "the card's scorer did not run K1"
-    err = float(np.abs(got - want).max())
-    assert err <= MODEL_TOL, err
-    print(f"model check: tiny fp32 scorer, card (K1) vs CPU (plain) max_abs_err {err:.3g} [{card}]")
-    return err
+    worst, probs = 0.0, None
+    for mode, knobs in (("dedup-2D", {}), ("per-window", dict(dedup_2d=False)),
+                        ("shared-2D", dict(shared_2d=True))):
+        cfg = dataclasses.replace(InferConfig(), **knobs)
+        want = DeviceVolumeScorer(cpu_model, cfg, device="cpu").score(vol, 4, 20).numpy()
+        before = affine_relu.launches
+        got = DeviceVolumeScorer(gpu_model, cfg, device="cuda").score(vol, 4, 20).cpu().numpy()
+        assert affine_relu.launches > before, f"the card's {mode} scorer did not run K1"
+        err = float(np.abs(got - want).max())
+        assert err <= MODEL_TOL, (mode, err)
+        worst = max(worst, err)
+        probs = want if mode == "dedup-2D" else probs
+        print(f"model check: tiny fp32 {mode} scorer, card (K1) vs CPU (plain) max_abs_err "
+              f"{err:.3g} [{card}]")
+    # the uint8 wire: thresholds midway between neighbouring probabilities
+    # more than 2 MODEL_TOL apart, so no voxel can flip between the devices
+    thresholds = []
+    for ch, q in ((1, 0.6), (2, 0.9)):
+        v = np.unique(probs[..., ch][probs[..., 0] > 0])
+        k = int(q * (len(v) - 1))
+        while v[k + 1] - v[k] <= 2 * MODEL_TOL:
+            k += 1
+        thresholds.append(float((v[k] + v[k + 1]) / 2))
+    cfg = InferConfig(wire_bits=8, thres_liver=thresholds[0], thres_tumor=thresholds[1])
+    want = DeviceVolumeScorer(cpu_model, cfg, device="cpu").labelmask(vol, 4, 20)
+    got = DeviceVolumeScorer(gpu_model, cfg, device="cuda").labelmask(vol, 4, 20)
+    assert np.array_equal(got, want) and (got == 1).any() and (got == 3).any()
+    print(f"model check: tiny uint8-wire labelmask, card vs CPU byte-identical [{card}]")
+    return worst
 
 
 def train_check(card: str) -> None:
@@ -884,7 +1161,7 @@ def train_check(card: str) -> None:
         launches = read_counts()
     finally:
         L.dropout = dropout
-    assert all(n > 0 for n in launches.values()), launches
+    assert all(launches[name] > 0 for name in K12_NAMES), launches
     assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0]), losses
     worst = 0.0
     for name, d_cpu in deltas[0].items():
@@ -916,7 +1193,12 @@ def main() -> None:
     k1_bwd = check_k1_backward(card)
     k2_fwd, k2_bwd = check_k2(card)
     check_back_to_back(card)
-    paths, calls, synthetic_ms = {"serve": serve_path(card)}, {}, {}
+    serve = serve_path(card)
+    paths, calls, synthetic_ms = {"serve": serve["launches"]}, {}, {}
+    paths.update(serve_dpp_path(card, serve))
+    paths.update(serve_modes(card, serve))
+    k4 = check_k4(card, serve)
+    del serve
     for arch in ("end2end", "2d"):
         paths[f"train_{arch}"], calls[f"train_{arch}"], synthetic_ms[arch] = train_path(card, arch)
     paths.update(cli_path(card, synthetic_ms))
@@ -931,18 +1213,26 @@ def main() -> None:
     train_check(card)
     kernels = []
     for name, source, replaces, numbers in (
-        ("affine_relu", "fused_affine.cu", "fused_affine.py:48", k1),
-        ("affine_relu_backward", "fused_affine.cu", "fused_affine.py:81", k1_bwd),
-        ("wce_forward", "wce.cu", "wce.py:80", k2_fwd),
-        ("wce_backward", "wce.cu", "wce.py:129", k2_bwd),
+        ("affine_relu", "fused_affine.cu", "ops/fused_affine.py:48", k1),
+        ("affine_relu_backward", "fused_affine.cu", "ops/fused_affine.py:81", k1_bwd),
+        ("wce_forward", "wce.cu", "ops/wce.py:80", k2_fwd),
+        ("wce_backward", "wce.cu", "ops/wce.py:129", k2_bwd),
+        ("cc_label", "cc.cu", "infer/device_postprocess.py:166", k4["cc_label"]),
+        ("largest_component", "cc.cu", "infer/device_postprocess.py:209", k4["largest_component"]),
+        ("fill_holes", "cc.cu", "infer/device_postprocess.py:259", k4["fill_holes"]),
+        ("compose_prep", "cc.cu", "infer/device_postprocess.py:313", k4["compose_prep"]),
+        ("compose_finish", "cc.cu", "infer/device_postprocess.py:379", k4["compose_finish"]),
     ):
+        main_path = "serve_dpp" if source == "cc.cu" else "train_end2end"
+        per = {"launches_per_volume": paths[main_path][name] // 2} if source == "cc.cu" else {
+            "launches_per_step": paths[main_path][name] // TRAIN_STEPS}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"hdenseunet_tpu_torch/csrc/{source}",
-            "replaces": f"hdenseunet_tpu/ops/{replaces}",
-            "launches": paths["train_end2end"][name],
-            "launches_per_step": paths["train_end2end"][name] // TRAIN_STEPS,
+            "replaces": f"hdenseunet_tpu/{replaces}",
+            "launches": paths[main_path][name],
+            **per,
             "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             **numbers,
             "library_ms": None,  # no single PyTorch call computes the same function

@@ -455,7 +455,7 @@ extern "C" int hdu_affine_relu_bwd(const void* g, const void* x, const void* y,
                   (!relu || aligned16(y));
   const int width = vec ? 16 / elem : 1;
   const BwdGeometry geo = bwd_geometry(rows, c, width);
-  if (geo.tiles > hdu::kCounterSlots ||
+  if (geo.tiles > hdu::kTicketSlots ||
       (long long)geo.tiles * geo.blocks * 2 * geo.tx * width > hdu::kPartialFloats)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,22 +1,29 @@
 """Device-resident sliding-window volume scoring (counterpart of
-hdenseunet_tpu/infer/device_pipeline.py, the exact dedup-2D path).
+hdenseunet_tpu/infer/device_pipeline.py's ``DeviceVolumeScorer``).
 
-Per volume: one h2d of the z-cropped volume in the compute dtype -> for each
-stride-aligned run of windows: one 2D pass over the run's unique slice
-stacks, the hybrid's 3D branch and HFF head over the run's windows, fp32
-softmax, edge-slice drop and multiplicity-weighted accumulate -> overlap
-average -> threshold -> 2-bit packed labelmask -> one small d2h. PyTorch
-queues the work asynchronously, so ``labelmask_async`` returns before the
-card is done and ``labelmask_collect`` waits.
+Per volume: one h2d of the z-cropped volume in the compute dtype -> window
+runs through the hybrid -> fp32 softmax, edge-slice drop and
+multiplicity-weighted accumulate -> overlap average -> threshold -> labelmask
+-> one small d2h. PyTorch queues the work asynchronously, so
+``labelmask_async`` returns before the card is done and ``labelmask_collect``
+waits.
+
+Three scoring paths, as in the JAX package: the exact dedup-2D path (the
+default: each stride-aligned run of windows shares one 2D pass over its
+unique slice stacks), the exact per-window path (``dedup_2d=False``), and the
+shared-2D fast mode (``shared_2d=True``: the 2D branch once per z slice, then
+the 3D branch and head per window; an opt-in deviation at window edges).
+Wires: the 2-bit packed labelmask (``wire_bits=2``), the uint8 one
+(``wire_bits=8``), and with ``device_postprocess`` the final labelmap after
+the CC postprocess on the card (``infer/device_postprocess.py``), dense or
+bbox-cropped (``sparse_wire``).
 
 The window-grid helpers are pure numpy, copied from the JAX package
 (sliding_window.window_starts, device_pipeline.plan_windows / make_grid /
 make_grid_structured) and pinned to the originals by tests.
 
-Ported here: the shipped default (``dedup_2d=True``, ``shared_2d=False``,
-``wire_bits=2``, ``device_postprocess=False``). The plain per-window path,
-the shared-2D mode, the unpacked wire, the tiled scorer and the device CC
-postprocess are later slices and raise.
+Not ported yet: the tiled scorer, the timing helpers (compute_timer,
+compute_seconds, estimate_flops) and the ``mesh`` argument.
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ import torch.nn.functional as F
 
 from ..models.hybrid import HDenseUNet
 from ..models import layers as L
+from ..ops.cc import pack2bits
+from .device_postprocess import compose_final, compose_packed
 
 Z_BUCKET = 64
 _WIRE_BUCKET = 16  # wire z rounds up to this
@@ -141,17 +150,6 @@ def pack_labels(score, thres_liver: float, thres_tumor: float, *, num_classes: i
     return (liver | tumor).to(torch.uint8) + 2 * tumor.to(torch.uint8)
 
 
-def pack2bits(mask, *, pack_z: int | None = None):
-    """uint8 labelmask {0,1,3} -> 2-bit wire, 4 z-voxels per byte (lossless);
-    ``pack_z`` first crops z. Inverse: :func:`unpack2bits`."""
-    if pack_z is not None:
-        mask = mask[:, :, :pack_z]
-    x, y, z = mask.shape
-    assert z % 4 == 0, z
-    m = mask.reshape(x, y, z // 4, 4)
-    return m[..., 0] + 4 * m[..., 1] + 16 * m[..., 2] + 64 * m[..., 3]
-
-
 def unpack2bits(buf: np.ndarray) -> np.ndarray:
     """Host-side inverse of pack2bits: (x, y, zq) uint8 -> (x, y, 4*zq)."""
     x, y, q = buf.shape
@@ -159,6 +157,19 @@ def unpack2bits(buf: np.ndarray) -> np.ndarray:
     for i in range(4):
         out[:, :, i::4] = (buf >> (2 * i)) & 3
     return out
+
+
+def summarize(score):
+    """Scalar digest (sum of liver and of tumour probabilities, max tumour
+    probability) of the whole score buffer, padding included, as JAX's
+    _summarize."""
+    return torch.stack([score[..., 1].sum(), score[..., 2].sum(), score[..., 2].max()])
+
+
+def crop_pack(final, x0: int, y0: int, z0: int, *, sx: int, sy: int, sz: int):
+    """2-bit wire of the (sx, sy, sz) crop of the device labelmap at (x0, y0,
+    z0); the caller keeps the crop inside the labelmap."""
+    return pack2bits(final[x0 : x0 + sx, y0 : y0 + sy, z0 : z0 + sz])
 
 
 class DeviceVolumeScorer:
@@ -170,6 +181,9 @@ class DeviceVolumeScorer:
     the model's weights must be final when the scorer is made.
     """
 
+    _SPARSE_BUCKET = (64, 64, 16)  # bbox crop sizes round up to these
+    _CHUNK_2D = 16  # z slices per 2D pass in the shared-2D mode's phase A
+
     def __init__(
         self,
         model: HDenseUNet,
@@ -180,15 +194,12 @@ class DeviceVolumeScorer:
         num_classes: int = 3,
         device="cuda",
     ):
-        if getattr(cfg, "shared_2d", False):
-            raise NotImplementedError("shared_2d scoring is not ported yet")
-        if not getattr(cfg, "dedup_2d", True) or cfg.window_stride <= 0:
-            raise NotImplementedError("only the dedup-2D scoring path is ported")
-        if getattr(cfg, "wire_bits", 2) != 2:
-            raise NotImplementedError("only the 2-bit packed labelmask wire is ported")
+        if getattr(cfg, "wire_bits", 2) not in (2, 8):
+            raise ValueError(f"wire_bits must be 2 or 8, got {cfg.wire_bits}")
         self.cfg = cfg
         self.arch = arch
         self.num_classes = num_classes
+        self.shared_2d = getattr(cfg, "shared_2d", False)
         self.device = torch.device(device)
         self.dtype = getattr(torch, compute_dtype)
         self.model = model.to(self.device).eval()
@@ -212,75 +223,138 @@ class DeviceVolumeScorer:
         z = z_hi - z_lo
         zp = self._bucketed(z)
         wb = max(1, self.cfg.window_batch)
+        if self.shared_2d:
+            wb = min(wb, 4)  # phase B's window gathers scale with wb
         starts_list = [s - z_lo for s in all_starts]
-        cap = -(-plan_windows(zp, self.cfg) // wb) + 1
-        starts, weights = make_grid_structured(
-            starts_list, wb, self.cfg.window_stride, max_runs=cap
+        dedup = (
+            getattr(self.cfg, "dedup_2d", True) and not self.shared_2d
+            and self.cfg.window_stride > 0
         )
+        if dedup:
+            cap = -(-plan_windows(zp, self.cfg) // wb) + 1
+            starts, weights = make_grid_structured(
+                starts_list, wb, self.cfg.window_stride, max_runs=cap
+            )
+        else:
+            # batches for the actual liver z-range, rounded up to 4 batches
+            need = len(set(starts_list))
+            n_batches = -(-max(1, -(-need // wb)) // 4) * 4
+            n_batches = min(n_batches, -(-plan_windows(zp, self.cfg) // wb))
+            starts, weights = make_grid(starts_list, wb, n_batches)
         return dict(
             z_lo=z_lo, z=z, zp=zp, zw=min(zp, -(-z // _WIRE_BUCKET) * _WIRE_BUCKET),
             xp=x0 + (-x0) % 32, yp=y0 + (-y0) % 32,
-            wb=wb, starts=starts, weights=weights,
+            wb=wb, dedup=dedup, starts=starts, weights=weights,
         )
 
     def _wire(self, vol: np.ndarray, p: dict):
-        """The z-crop of the volume, zero-padded to the wire bucket, on the
+        """The z-crop of the volume, zero-padded to the compute shape on the
         device in the compute dtype. bf16 is exact for the clipped,
         mean-subtracted CT integers (every one lies in [-248, 202])."""
         x0, y0, _ = vol.shape
         vol_p = np.zeros((x0, y0, p["zw"]), np.float32)
         vol_p[:, :, : p["z"]] = vol[:, :, p["z_lo"] : p["z_lo"] + p["z"]]
-        return torch.from_numpy(vol_p).to(self.dtype).to(self.device)
+        wire = torch.from_numpy(vol_p).to(self.dtype).to(self.device)
+        return F.pad(wire, (0, p["zp"] - p["zw"], 0, p["yp"] - y0, 0, p["xp"] - x0))
+
+    def _accumulate(self, score, count, probs, s_i, w_i):
+        """Add each window's weighted interior probabilities (the two z-edge
+        slices dropped) into the score buffer; weight-0 windows add nothing
+        and are skipped."""
+        inner = self.cfg.input_cols - 2
+        for j in range(len(s_i)):
+            w = float(w_i[j])
+            if w == 0.0:
+                continue
+            sj = int(s_i[j]) + 1
+            score[:, :, sj : sj + inner].add_(probs[j, :, :, 1:-1], alpha=w)
+            count[sj : sj + inner] += w
+
+    def _windows(self, vol_d, s_i):
+        """(wb, x, y, cols, 1) windows at starts s_i, each start clamped into
+        the buffer as ``lax.dynamic_slice`` clamps it."""
+        cols, zp = self.cfg.input_cols, vol_d.shape[2]
+        win = np.clip(s_i, 0, zp - cols)[:, None] + np.arange(cols)  # (wb, cols)
+        vol_w = vol_d[:, :, torch.from_numpy(win).to(self.device)]  # (x, y, wb, cols)
+        return vol_w.permute(2, 0, 1, 3).unsqueeze(-1)
 
     @torch.inference_mode()
     def _score(self, vol: np.ndarray, p: dict):
         """Averaged probabilities (xp, yp, zp, C) float32 on the device.
 
-        Runs whose weights are all zero (the plan's bucket padding) are
+        Batches whose weights are all zero (the plan's bucket padding) are
         skipped, and so are weight-0 windows in the accumulate: both add
-        exactly nothing to the JAX program's accumulators, so results are
-        identical. Gather indices are clamped as ``jnp.take(mode='clip')``
-        and ``lax.dynamic_slice`` clamp them: padding windows of
-        right-aligned runs reach past the crop and must read finite values.
+        exactly nothing to the JAX program's accumulators. Every gather index
+        is clamped as ``jnp.take(mode='clip')`` and ``lax.dynamic_slice``
+        clamp them: padding windows reach past the crop and must read finite
+        values.
         """
-        cols, stride = self.cfg.input_cols, self.cfg.window_stride
-        x, y, zp, wb = p["xp"], p["yp"], p["zp"], p["wb"]
-        inner = cols - 2
-        ni = (wb - 1) * stride + cols - 2
-        wire = self._wire(vol, p)
-        vol_d = F.pad(wire, (0, zp - wire.shape[2], 0, y - wire.shape[1], 0, x - wire.shape[0]))
-        asm = torch.from_numpy(assembly_map(wb, cols, stride)).to(self.device)
-
+        vol_d = self._wire(vol, p)
+        x, y, zp = vol_d.shape
         score = torch.zeros((x, y, zp, self.num_classes), dtype=torch.float32, device=self.device)
         count = torch.zeros((zp,), dtype=torch.float32, device=self.device)
+        if self.shared_2d:
+            run = self._shared2d_batches(vol_d, p["z"])
+        elif p["dedup"]:
+            run = self._dedup_batch(vol_d, p["wb"])
+        else:
+            run = lambda s_i: self.model(self._windows(vol_d, s_i), arch=self.arch)
         for s_i, w_i in zip(p["starts"].astype(np.int64), p["weights"]):
-            if not w_i.any():
-                continue
-            s0 = s_i[0]
-            c_idx = s0 + 1 + np.arange(ni)
+            if w_i.any():
+                self._accumulate(score, count, torch.softmax(run(s_i).float(), dim=-1), s_i, w_i)
+        return score / (count[None, None, :, None] + 1e-4)  # funcs.py:48
+
+    def _dedup_batch(self, vol_d, wb: int):
+        """One stride-aligned run's logits: a 2D pass over the run's unique
+        interior stacks and each window's two replicated edge stacks, then
+        the 3D branch and head per window (device_pipeline.py:1128-1178)."""
+        cols, stride, zp = self.cfg.input_cols, self.cfg.window_stride, vol_d.shape[2]
+        ni = (wb - 1) * stride + cols - 2
+        asm = torch.from_numpy(assembly_map(wb, cols, stride)).to(self.device)
+
+        def run(s_i):
+            c_idx = s_i[0] + 1 + np.arange(ni)
             # centers [interior..., first edges..., last edges...] -> (z-1, z, z+1)
             prev = np.concatenate([c_idx - 1, s_i, s_i + cols - 2])
             cur = np.concatenate([c_idx, s_i, s_i + cols - 1])
             nxt = np.concatenate([c_idx + 1, s_i + 1, s_i + cols - 1])
             idx = np.clip(np.stack([prev, cur, nxt], axis=-1), 0, zp - 1)  # (N, 3)
             stacks = vol_d[:, :, torch.from_numpy(idx).to(self.device)]  # (x, y, N, 3)
-            stacks = stacks.permute(2, 0, 1, 3).contiguous()  # (N, x, y, 3)
-            feat2d, logits2d = self.model.net2d(stacks)
+            feat2d, logits2d = self.model.net2d(stacks.permute(2, 0, 1, 3).contiguous())
             res_w = logits2d[asm].permute(0, 2, 3, 1, 4)  # (wb, x, y, cols, C)
             fea_w = feat2d[asm].permute(0, 2, 3, 1, 4)  # (wb, x, y, cols, F)
-            win = np.clip(s_i, 0, zp - cols)[:, None] + np.arange(cols)  # (wb, cols)
-            vol_w = vol_d[:, :, torch.from_numpy(win).to(self.device)]  # (x, y, wb, cols)
-            vol_w = vol_w.permute(2, 0, 1, 3).unsqueeze(-1)  # (wb, x, y, cols, 1)
-            logits = self.model.fuse(vol_w, res_w, fea_w, arch=self.arch)
-            probs = torch.softmax(logits.float(), dim=-1)[:, :, :, 1:-1, :]
-            for j in range(wb):
-                w = float(w_i[j])
-                if w == 0.0:
-                    continue
-                sj = int(s_i[j]) + 1
-                score[:, :, sj : sj + inner].add_(probs[j], alpha=w)
-                count[sj : sj + inner] += w
-        return score / (count[None, None, :, None] + 1e-4)  # funcs.py:48
+            return self.model.fuse(self._windows(vol_d, s_i), res_w, fea_w, arch=self.arch)
+
+        return run
+
+    def _shared2d_batches(self, vol_d, z_real: int):
+        """Phase A (device_pipeline.py:913-940): the 2D branch once over every
+        z slice of the buffer, each slice's stack [z-1, z, z+1] clamped at
+        the volume's real extent, features and logits kept in the compute
+        dtype, (zp, x, y, F) and (zp, x, y, C). Returns phase B's per-batch
+        function: each window gathers its slices of both and runs the 3D
+        branch and head (:946-967)."""
+        x, y, zp = vol_d.shape
+        cols = self.cfg.input_cols
+        fea = res = None
+        for z0 in range(0, zp, self._CHUNK_2D):
+            idx = np.arange(z0, min(z0 + self._CHUNK_2D, zp))
+            prev, cur, nxt = np.maximum(idx - 1, 0), np.minimum(idx, z_real - 1), np.minimum(idx + 1, z_real - 1)
+            sel = torch.from_numpy(np.stack([prev, cur, nxt], axis=-1)).to(self.device)
+            f2, l2 = self.model.net2d(vol_d[:, :, sel].permute(2, 0, 1, 3).contiguous())
+            if fea is None:
+                fea = torch.empty((zp, x, y, f2.shape[-1]), dtype=self.dtype, device=self.device)
+                res = torch.empty((zp, x, y, l2.shape[-1]), dtype=self.dtype, device=self.device)
+            fea[z0 : z0 + len(idx)] = f2
+            res[z0 : z0 + len(idx)] = l2
+
+        def run(s_i):
+            win = torch.from_numpy(np.clip(s_i, 0, zp - cols)[:, None] + np.arange(cols)).to(self.device)
+            fea_w = fea[win].permute(0, 2, 3, 1, 4)  # (wb, x, y, cols, F)
+            res_w = res[win].permute(0, 2, 3, 1, 4)
+            return self.model.fuse(self._windows(vol_d, s_i), res_w, fea_w, arch=self.arch)
+
+        return run
 
     @staticmethod
     def _restore_z(arr, z_lo: int, z_full: int):
@@ -291,39 +365,125 @@ class DeviceVolumeScorer:
         pad = [0, 0] * (arr.dim() - 3) + [z_lo, z_full - z_lo - z]
         return F.pad(arr, pad)
 
-    def score(self, vol: np.ndarray, mini_z: int, maxi_z: int):
-        """vol: (X, Y, Z) mean-subtracted -> (X, Y, Z, C) float32 probabilities
-        on the device, zero outside the scored z range."""
+    def score(self, vol: np.ndarray, mini_z: int, maxi_z: int, output: str = "probs"):
+        """vol: (X, Y, Z) mean-subtracted -> on the device, zero outside the
+        scored z range: 'probs' (X, Y, Z, C) float32 probabilities, 'packed'
+        the thresholded uint8 mask (X, Y, Z) (bit 0 liver or tumour, bit 1
+        tumour), or 'digest' the 3 scalars of :func:`summarize`."""
+        if output not in ("probs", "packed", "digest"):
+            raise ValueError(f"unknown output {output!r}")
         x0, y0, z_full = vol.shape
         p = self.plan(vol.shape, mini_z, maxi_z)
-        out = self._score(vol, p)[:x0, :y0, : p["z"]]
-        return self._restore_z(out, p["z_lo"], z_full)
+        probs = self._score(vol, p)
+        if output == "digest":
+            return summarize(probs)
+        if output == "packed":
+            probs = pack_labels(
+                probs, self.cfg.thres_liver, self.cfg.thres_tumor, num_classes=self.num_classes
+            )
+        return self._restore_z(probs[:x0, :y0, : p["z"]], p["z_lo"], z_full)
+
+    def predict_volume(self, vol: np.ndarray, mini_z: int, maxi_z: int):
+        """Host-compatible API: (liver_prob, tumor_prob) numpy arrays."""
+        score = self.score(vol, mini_z, maxi_z).cpu().numpy()
+        return score[..., self.num_classes - 2], score[..., self.num_classes - 1]
+
+    def summarize(self, vol: np.ndarray, mini_z: int, maxi_z: int) -> np.ndarray:
+        """Scalar digest only (no volume-sized d2h)."""
+        return self.score(vol, mini_z, maxi_z, output="digest").cpu().numpy()
 
     def labelmask(self, vol: np.ndarray, mini_z: int, maxi_z: int):
         """uint8 (X,Y,Z): bit0 = liver-or-tumor, bit1 = tumor."""
         return self.labelmask_collect(self.labelmask_async(vol, mini_z, maxi_z))
 
-    def labelmask_async(self, vol: np.ndarray, mini_z: int, maxi_z: int):
+    def _ext_bits(self, ext_mask, p: dict, shape):
+        """The external mask's z-crop over the wire's zw slices, packed along
+        z on the host (``np.packbits``, zw a multiple of 8), on the device."""
+        x0, y0, z_full = shape
+        z_avail = min(p["zw"], z_full - p["z_lo"])
+        crop = np.zeros((x0, y0, p["zw"]), np.uint8)
+        crop[:, :, :z_avail] = np.asarray(ext_mask[:, :, p["z_lo"] : p["z_lo"] + z_avail], bool)
+        return torch.from_numpy(np.packbits(crop, axis=2)).to(self.device)
+
+    def labelmask_async(self, vol: np.ndarray, mini_z: int, maxi_z: int, ext_mask=None):
         """Upload and queue one volume's scoring; defer the d2h.
 
-        The mask stays on the device z-cropped to the wire bucket and 2-bit
-        packed. Returns a handle for :meth:`labelmask_collect`."""
+        The mask stays on the device z-cropped to the wire bucket, 2-bit
+        packed (``wire_bits=2``) or as uint8 (``wire_bits=8``). With
+        ``ext_mask`` (the once-dilated external liver mask, full extent,
+        its nonzero z range inside [mini_z, maxi_z], which
+        ``postprocess.liver_mask_extent`` guarantees) and
+        ``device_postprocess`` on, the reference's whole CC postprocess
+        (test.py:70-115) is queued after the scoring on the same stream, and
+        the wire carries the final {0,1,2} labelmap: 2-bit packed, or with
+        ``sparse_wire`` kept on the device for a bbox-cropped fetch.
+        ``postprocess_chunk_iters`` changes nothing here (module docstring of
+        ``infer/device_postprocess.py``). Returns a handle for
+        :meth:`labelmask_collect`."""
         x0, y0, z_full = vol.shape
+        bits = int(getattr(self.cfg, "wire_bits", 2))
+        dpp = ext_mask is not None and bool(getattr(self.cfg, "device_postprocess", False))
+        sparse = dpp and bool(getattr(self.cfg, "sparse_wire", False))
         p = self.plan(vol.shape, mini_z, maxi_z)
+        ext_bits = self._ext_bits(ext_mask, p, vol.shape) if dpp else None
         with torch.inference_mode():
             mask = pack_labels(
                 self._score(vol, p), self.cfg.thres_liver, self.cfg.thres_tumor,
                 num_classes=self.num_classes,
             )
-            out = pack2bits(mask, pack_z=p["zw"])
-        return out, dict(x0=x0, y0=y0, z=p["z"], z_lo=p["z_lo"], z_full=z_full)
+            if sparse:
+                out = compose_final(mask, ext_bits, pack_z=p["zw"])
+            elif dpp:
+                out = compose_packed(mask, ext_bits, pack_z=p["zw"])
+            elif bits == 2:
+                out = pack2bits(mask, pack_z=p["zw"])
+            else:
+                out = mask[:, :, : p["zw"]]
+        return out, dict(
+            bits=2 if dpp else bits, sparse=sparse,
+            x0=x0, y0=y0, z=p["z"], z_lo=p["z_lo"], z_full=z_full,
+        )
 
     def labelmask_collect(self, handle) -> np.ndarray:
         """Fetch a labelmask_async handle -> uint8 (X, Y, Z) labelmask,
         cropped to the volume's own x/y (the padding to multiples of 32 also
         carries thresholded output)."""
         dev, m = handle
-        buf = unpack2bits(dev.cpu().numpy())
+        if m["sparse"]:
+            return self._collect_sparse(dev, m)
+        buf = dev.cpu().numpy()
+        if m["bits"] == 2:
+            buf = unpack2bits(buf)
         out = np.zeros((m["x0"], m["y0"], m["z_full"]), np.uint8)
         out[:, :, m["z_lo"] : m["z_lo"] + m["z"]] = buf[: m["x0"], : m["y0"], : m["z"]]
+        return out
+
+    def _collect_sparse(self, dev, m) -> np.ndarray:
+        """Sparse-wire collect (device_pipeline.py:656-696): fetch the 6-int
+        bbox, then only the bbox crop, its sizes rounded up to
+        ``_SPARSE_BUCKET``. Lossless: outside the bbox the labelmap is zero."""
+        final, bbox_dev = dev
+        out = np.zeros((m["x0"], m["y0"], m["z_full"]), np.uint8)
+        bb = bbox_dev.cpu().numpy()
+        if bb[0] > bb[1]:  # empty labelmap
+            return out
+        xp, yp, zw = final.shape
+
+        def plan_axis(lo, hi, dim, bucket):
+            size = min(dim, -(-(int(hi) - int(lo) + 1) // bucket) * bucket)
+            return min(int(lo), dim - size), size
+
+        (xs, sx), (ys, sy), (zs, sz) = (
+            plan_axis(bb[2 * a], bb[2 * a + 1], dim, bucket)
+            for a, (dim, bucket) in enumerate(zip((xp, yp, zw), self._SPARSE_BUCKET))
+        )
+        crop = unpack2bits(crop_pack(final, xs, ys, zs, sx=sx, sy=sy, sz=sz).cpu().numpy())
+        # paste, clipped to the true volume extent (the crop can reach into
+        # xy compute padding, zero there, or past the scored z range)
+        gx = min(xs + sx, m["x0"])
+        gy = min(ys + sy, m["y0"])
+        gz_lo = m["z_lo"] + zs
+        gz = min(gz_lo + sz, m["z_lo"] + m["z"], m["z_full"])
+        if gx > xs and gy > ys and gz > gz_lo:
+            out[xs:gx, ys:gy, gz_lo:gz] = crop[: gx - xs, : gy - ys, : gz - gz_lo]
         return out

@@ -1,9 +1,11 @@
 """End-to-end volume segmentation (counterpart of
 hdenseunet_tpu/infer/predictor.py; reference test.py:39-115).
 
-The scorer runs on the device; the connected-component postprocess runs on
-the host (``infer/postprocess.py`` with ``native/postprocess.cpp``), byte for
-byte the reference's.
+The scorer runs on the device. The connected-component postprocess runs on
+the host (``infer/postprocess.py`` with ``native/postprocess.cpp``) or, with
+``InferConfig.device_postprocess``, on the device after the scoring
+(``infer/device_postprocess.py``); both give the reference's labelmap byte
+for byte.
 """
 from __future__ import annotations
 
@@ -24,8 +26,6 @@ class VolumePredictor:
     def __init__(self, model, cfg, *, arch: str = "end2end", device="cuda"):
         if not cfg.infer.device_resident:
             raise NotImplementedError("the host-loop window predictor is not ported yet")
-        if cfg.infer.device_postprocess:
-            raise NotImplementedError("the device CC postprocess is not ported yet")
         self.cfg = cfg
         self.windows = DeviceVolumeScorer(
             model,
@@ -42,16 +42,22 @@ class VolumePredictor:
 
     def dispatch(self, vol: np.ndarray, ext_liver_mask: np.ndarray):
         """Upload and queue one volume's scoring WITHOUT fetching; pair with
-        :meth:`collect`."""
+        :meth:`collect`. With ``device_postprocess`` the CC postprocess is
+        queued too, and the handle's kind is "final"."""
         img = np.asarray(vol, np.float32) - self.cfg.infer.mean  # test.py:55
         mask, z_lo, z_hi = postprocess.liver_mask_extent(ext_liver_mask)
-        return self.windows.labelmask_async(img, z_lo, z_hi), mask
+        if self.cfg.infer.device_postprocess:
+            return "final", self.windows.labelmask_async(img, z_lo, z_hi, ext_mask=mask), None
+        return "packed", self.windows.labelmask_async(img, z_lo, z_hi), mask
 
     def collect(self, handle) -> np.ndarray:
-        """Fetch a dispatched volume's labelmask and postprocess it."""
-        payload, mask = handle
-        packed = self.windows.labelmask_collect(payload)
-        return postprocess.compose_from_masks(packed >= 1, packed >= 3, mask)
+        """Fetch a dispatched volume's labelmask and, unless the device
+        postprocessed it, postprocess it on the host."""
+        kind, payload, mask = handle
+        labels = self.windows.labelmask_collect(payload)
+        if kind == "final":
+            return labels
+        return postprocess.compose_from_masks(labels >= 1, labels >= 3, mask)
 
 
 def predict_directory(

@@ -19,7 +19,12 @@ with the card's name and power limit:
 4. K1 against the plain PyTorch chain end to end, in turns (plain, K1, K1,
    plain per pair). The plain chain is switched on here only, by pointing
    ``ops.fused_affine.affine_relu`` at ``affine_relu_reference``; the package
-   itself has no such switch. The K1 launch counter shows which one ran.
+   itself has no such switch. The K1 launch counter shows which one ran;
+5. the CC postprocess on the host against on the device
+   (``device_postprocess``, sparse wire), in turns (host, device, device,
+   host per pair): per volume the stages extent, scoring, host postprocess
+   or device compose (K4, synchronised), fetch and total; the labelmaps of
+   both equal.
 
 It raises without a card and catches nothing.
 """
@@ -27,6 +32,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import dataclasses
 import time
 from collections import defaultdict
 
@@ -53,6 +60,37 @@ def timed_segment(predictor, vol, ext) -> tuple[np.ndarray, dict]:
     labelmap = postprocess.compose_from_masks(packed >= 1, packed >= 3, mask)
     t.append(time.perf_counter())
     names = ("extent", "scoring", "fetch", "postprocess")
+    stages = {n: t[i + 1] - t[i] for i, n in enumerate(names)}
+    stages["total"] = t[-1] - t[0]
+    return labelmap, stages
+
+
+def timed_segment_dpp(predictor, vol, ext) -> tuple[np.ndarray, dict]:
+    """``VolumePredictor.segment`` with ``device_postprocess`` and the sparse
+    wire, step by step: the scoring and the compose are each synchronised,
+    so the compose's time on the host clock is the card's."""
+    from hdenseunet_tpu_torch.infer import postprocess
+    from hdenseunet_tpu_torch.infer.device_pipeline import pack_labels
+    from hdenseunet_tpu_torch.infer.device_postprocess import compose_final
+
+    sc, icfg = predictor.windows, predictor.cfg.infer
+    t = [time.perf_counter()]
+    img = np.asarray(vol, np.float32) - icfg.mean
+    mask, z_lo, z_hi = postprocess.liver_mask_extent(ext)
+    p = sc.plan(vol.shape, z_lo, z_hi)
+    ext_bits = sc._ext_bits(mask, p, vol.shape)
+    t.append(time.perf_counter())
+    with torch.inference_mode():
+        scores = pack_labels(sc._score(img, p), icfg.thres_liver, icfg.thres_tumor)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        dev = compose_final(scores, ext_bits, pack_z=p["zw"])
+        torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    labelmap = sc._collect_sparse(dev, dict(x0=vol.shape[0], y0=vol.shape[1], z=p["z"],
+                                            z_lo=p["z_lo"], z_full=vol.shape[2]))
+    t.append(time.perf_counter())
+    names = ("extent", "scoring", "compose", "fetch")
     stages = {n: t[i + 1] - t[i] for i, n in enumerate(names)}
     stages["total"] = t[-1] - t[0]
     return labelmap, stages
@@ -199,6 +237,23 @@ def main() -> None:
             f"end to end {variant}: scoring s {[round(s, 3) for s, _ in rs]}, "
             f"segment s {[round(t, 3) for _, t in rs]} [{card}]"
         )
+
+    dpp_cfg = copy.deepcopy(cfg)
+    dpp_cfg.infer = dataclasses.replace(cfg.infer, device_postprocess=True, sparse_wire=True)
+    dpp = VolumePredictor(predictor.windows.model, dpp_cfg, arch="end2end", device="cuda")
+    assert np.array_equal(dpp.segment(*cases[0]), want), "device postprocess differs from the host's"
+    turns = {"host": [], "device": []}
+    for i in range(args.pairs):
+        vol, ext = cases[i % len(cases)]
+        for variant in ("host", "device", "device", "host"):
+            fn = timed_segment if variant == "host" else timed_segment_dpp
+            lab, st = fn(predictor if variant == "host" else dpp, vol, ext)
+            turns[variant].append((lab, st))
+        assert np.array_equal(turns["host"][-1][0], turns["device"][-1][0])
+    for variant, rs in turns.items():
+        keys = rs[0][1].keys()
+        print(f"postprocess on the {variant}: " + ", ".join(
+            f"{k} s {[round(st[k], 4) for _, st in rs]}" for k in keys) + f" [{card}]")
 
 
 if __name__ == "__main__":

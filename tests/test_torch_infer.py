@@ -6,6 +6,7 @@ through the parameter bridge. Thresholds for the labelmap tests are taken
 from quantiles of JAX's own probabilities, so liver and tumor voxels both
 occur (random tiny weights stay below the shipped 0.5 / 0.9).
 """
+import copy
 import dataclasses
 import subprocess
 import sys
@@ -246,19 +247,107 @@ def test_predict_directory_matches_jax_segment(tiny, segment_case, tmp_path):
         np.testing.assert_array_equal(np.asarray(got), jax_vp.segment(vol, ext), err_msg=f"vol {i}")
 
 
-@pytest.mark.parametrize(
-    "field,value",
-    [
-        ("shared_2d", True), ("dedup_2d", False), ("device_resident", False),
-        ("device_postprocess", True), ("wire_bits", 8),
-    ],
-)
+@pytest.mark.parametrize("field,value", [("device_resident", False)])
 def test_unported_serving_options_raise(field, value):
     cfg = Config()
     cfg.model.preset = "tiny"
     cfg.infer = dataclasses.replace(cfg.infer, **{field: value})
     with pytest.raises(NotImplementedError):
         VolumePredictor(HDenseUNet(preset="tiny", device="meta"), cfg, device="meta")
+
+
+# --------------------------------------------------------------------------
+# the scorer's other modes and the device postprocess
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "shape,field", [((64, 64, 28), "dedup_2d"), ((48, 40, 28), "dedup_2d"),
+                    ((64, 64, 28), "shared_2d"), ((48, 40, 28), "shared_2d")],
+)
+def test_other_scoring_paths_match_jax(tiny, jax_probs, shape, field):
+    """The exact per-window path (dedup_2d=False) and the shared-2D fast mode
+    against the JAX scorer under the same setting; the per-window path also
+    against the shipped dedup path, which is exact too."""
+    vol, lo, hi, dedup_probs = jax_probs[shape]
+    value = field == "shared_2d"
+    jcfg = dataclasses.replace(JInferConfig(), **{field: value})
+    want = np.asarray(JD.DeviceVolumeScorer(*tiny, jcfg, preset="tiny").score(vol, lo, hi))
+    scorer = TD.DeviceVolumeScorer(
+        _port_model(tiny), dataclasses.replace(InferConfig(), **{field: value}), device="cpu"
+    )
+    got = scorer.score(vol, lo, hi)
+    assert tuple(got.shape) == shape + (3,)
+    np.testing.assert_allclose(got.numpy(), want, atol=PROB_TOL, rtol=0)
+    if field == "dedup_2d":
+        np.testing.assert_allclose(got.numpy(), dedup_probs, atol=PROB_TOL, rtol=0)
+    else:  # windows of 4 batches (device_pipeline.py:295-299)
+        assert scorer.plan(vol.shape, lo, hi)["wb"] == 4
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 28), (48, 40, 28)])
+def test_uint8_wire_and_outputs_match_jax(tiny, jax_probs, shape):
+    """wire_bits=8: the labelmask byte for byte; score's 'packed' output;
+    the digest and predict_volume within the probabilities' tolerance."""
+    vol, lo, hi, probs = jax_probs[shape]
+    liver_t, tumor_t = _thresholds(probs)
+    jcfg = JInferConfig(thres_liver=liver_t, thres_tumor=tumor_t, wire_bits=8)
+    pcfg = InferConfig(thres_liver=liver_t, thres_tumor=tumor_t, wire_bits=8)
+    jax_sc = JD.DeviceVolumeScorer(*tiny, jcfg, preset="tiny")
+    port_sc = TD.DeviceVolumeScorer(_port_model(tiny), pcfg, device="cpu")
+    got = port_sc.labelmask(vol, lo, hi)
+    np.testing.assert_array_equal(got, jax_sc.labelmask(vol, lo, hi))
+    assert (got == 1).any() and (got == 3).any()
+    np.testing.assert_array_equal(
+        port_sc.score(vol, lo, hi, output="packed").numpy(),
+        np.asarray(jax_sc.score(vol, lo, hi, output="packed")),
+    )
+    digest, want = port_sc.summarize(vol, lo, hi), jax_sc.summarize(vol, lo, hi)
+    # sums of n probabilities, each within PROB_TOL, in another order
+    n = np.prod(jax_probs[shape][3].shape[:3])
+    np.testing.assert_allclose(digest[:2], want[:2], atol=PROB_TOL * n, rtol=1e-6)
+    np.testing.assert_allclose(digest[2], want[2], atol=PROB_TOL, rtol=0)
+    for got_p, want_p in zip(port_sc.predict_volume(vol, lo, hi), jax_sc.predict_volume(vol, lo, hi)):
+        np.testing.assert_allclose(got_p, want_p, atol=PROB_TOL, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def host_labelmaps(tiny, segment_case):
+    """The JAX predictor's labelmaps with the host postprocess, and the
+    port's, for the segment case and one with xy compute padding."""
+    vol, ext, jcfg, pcfg, jax_vp = segment_case
+    vol2 = _volume((48, 40, 28), seed=9) + 48.0
+    ext2 = _ext_mask((48, 40, 28))
+    out = {}
+    for key, v, e in (("64", vol, ext), ("48", vol2, ext2)):
+        want = jax_vp.segment(v, e)
+        np.testing.assert_array_equal(
+            VolumePredictor(_port_model(tiny), pcfg, device="cpu").segment(v, e), want
+        )
+        out[key] = (v, e, want)
+    return out
+
+
+@pytest.mark.parametrize("chunk_iters", [0, 2])
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("device_pp", [False, True])
+def test_predictor_postprocess_matrix(tiny, segment_case, host_labelmaps, device_pp, sparse, chunk_iters):
+    """Labelmaps byte-identical to the JAX VolumePredictor's under the same
+    settings and to the host-postprocess path, for every combination of
+    device_postprocess, sparse_wire and postprocess_chunk_iters."""
+    _, _, jcfg, pcfg, _ = segment_case
+    knobs = dict(device_postprocess=device_pp, sparse_wire=sparse, postprocess_chunk_iters=chunk_iters)
+    jcfg, pcfg = copy.deepcopy(jcfg), copy.deepcopy(pcfg)
+    jcfg.infer = dataclasses.replace(jcfg.infer, **knobs)
+    pcfg.infer = dataclasses.replace(pcfg.infer, **knobs)
+    cases = host_labelmaps.items() if device_pp and sparse and chunk_iters else [("64", host_labelmaps["64"])]
+    port_vp = VolumePredictor(_port_model(tiny), pcfg, device="cpu")
+    jax_vp = JVolumePredictor(*tiny, jcfg)
+    for key, (vol, ext, host) in cases:
+        got = port_vp.segment(vol, ext)
+        assert got.dtype == np.uint8 and (got == 1).any() and (got == 2).any()
+        np.testing.assert_array_equal(got, host, err_msg=key)
+        np.testing.assert_array_equal(got, jax_vp.segment(vol, ext), err_msg=key)
 
 
 def test_port_imports_no_jax():
@@ -280,4 +369,4 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == len(modules) >= 28
+    assert int(out.stdout.strip()) == len(modules) >= 30

@@ -536,3 +536,42 @@ def test_cuda_kernel_raises_on_layout_and_dtype(cuda):
             torch.zeros(4, 8, device=cuda, dtype=torch.float16),
             torch.ones(8, device=cuda), torch.zeros(8, device=cuda),
         )
+
+
+# --------------------------------------------------------------------------
+# K4 (ops.cc) on the card against its plain versions
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("p", [0.05, 0.1, 0.3, 0.6, 0.95])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 1, 7), (17, 9, 33), (64, 48, 40)])
+def test_cuda_cc_kernels_match_plain(cuda, shape, p):
+    """The labels themselves (component minima), the largest component and
+    the hole fill, bit for bit; twice, the same bits."""
+    from hdenseunet_tpu_torch.ops import cc
+
+    m = torch.from_numpy(np.random.default_rng(int(p * 100) + sum(shape)).random(shape) < p).to(cuda)
+    for conn in (26, 6):
+        got = cc.cc_label(m, conn)
+        assert torch.equal(got, cc.cc_label_reference(m, conn)), conn
+        assert torch.equal(got, cc.cc_label(m, conn))
+    assert torch.equal(cc.largest_component(m), cc.largest_component_reference(m))
+    assert torch.equal(cc.fill_holes(m), cc.fill_holes_reference(m))
+
+
+@pytest.mark.parametrize("x0,y0,xp,yp,zs,pack_z", [(16, 16, 16, 16, 16, 16), (30, 21, 32, 32, 64, 24)])
+def test_cuda_compose_kernels_match_plain(cuda, x0, y0, xp, yp, zs, pack_z):
+    from hdenseunet_tpu_torch.ops import cc
+
+    rng = np.random.default_rng(x0 + pack_z)
+    scores = rng.choice(np.array([0, 1, 3], np.uint8), size=(xp, yp, zs), p=[0.6, 0.3, 0.1])
+    ext_bits = rng.integers(0, 256, (x0, y0, pack_z // 8), dtype=np.uint8)
+    args = (torch.from_numpy(scores).to(cuda), torch.from_numpy(ext_bits).to(cuda))
+    got = cc.compose_prep(*args, pack_z=pack_z)
+    want = cc.compose_prep_reference(*args, pack_z=pack_z)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for liver, tumor in ((got[0], got[1]), (torch.zeros_like(got[0]), torch.zeros_like(got[1]))):
+        for _ in range(2):  # the second call finds the scratch counters reset
+            out = cc.compose_finish(liver, tumor)
+            ref = cc.compose_finish_reference(liver, tumor)
+            assert all(torch.equal(a, b) for a, b in zip(out, ref)), (out[2], ref[2])
