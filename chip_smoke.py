@@ -26,6 +26,14 @@ failure exits non-zero):
    - one volume each through the per-window path (``dedup_2d=False``), the
      shared-2D mode and the uint8 wire: probabilities finite in [0, 1],
      times; the uint8 wire's labelmap equal to the host path's;
+   - serve_host_loop: the same volume through the host-loop WindowPredictor
+     (``device_resident=False``), its labelmap against the per-window
+     path's (byte-identical, or within HOST_LOOP_BOUND), s/volume split
+     into scoring and postprocess;
+   - serve_tiled: the same volume through TiledPredictor with 256x256x8
+     windows (207 in 26 batches of 8, reckoned from tile_origins): every
+     voxel covered, probabilities finite in [0, 1], device scoring s,
+     s/volume, peak memory;
    - K4 (cc_label 26 and 6, largest_component, fill_holes, compose_prep,
      compose_finish) against its plain versions on the card and
      native/postprocess.cpp at 512x512x112 (random masks at four densities,
@@ -33,7 +41,11 @@ failure exits non-zero):
      thresholded labelmask, with times, bounds and kernels per call;
 5. the training path: ``train`` for 4 end2end steps at full width (global
    batch 8 of 224x224x8 sub-volumes, bfloat16, remat), then 4 steps of the
-   2D stage at bench.py's configuration (batch 8 of 224x224 slabs). A
+   2D stage at bench.py's configuration (batch 8 of 224x224 slabs), then
+   the end2end steps again under ``remat_policy='convs'`` (launches per
+   step; ms/step, peak memory and losses beside the 'full' run's and a
+   second 'full' run's; one step of each policy from the same weights and
+   batch within phase 7's bars). A
    recording wrapper on the autograd Functions notes the shape of every
    K1-backward and K2 call; each class of shape is then held against the
    plain version and timed alone with the L2 cache flushed, and the step's
@@ -43,7 +55,8 @@ failure exits non-zero):
    512x512x64 volumes), train 2d (4 steps, checkpoints), train end2end
    warm-started from the 2D checkpoint (4 steps, a save every 2), the same
    run resumed (2 steps), test on one 512x512x64 NIfTI volume from the
-   end2end checkpoint, and evaluate; full preset, bfloat16, batch 8 of
+   end2end checkpoint, the same test with ``--tiled 256``, and evaluate;
+   full preset, bfloat16, batch 8 of
    real guided crops (224x224 slabs, 224x224x8 sub-volumes) through the
    CropSampler (8 crop threads) and the prefetch pipeline. It checks the
    launches of each command, the warm start (every 2D layer loaded, none
@@ -51,15 +64,18 @@ failure exits non-zero):
    bit) and the labelmap, and times the steps next to phase 5's synthetic
    feed, the sampler alone, the saves and restores, and the test volume;
 7. model-level checks of the kernel paths: the tiny-preset scorer in each
-   scoring path (dedup-2D, per-window, shared-2D) and its uint8-wire
-   labelmask, and one tiny end2end train step, in float32 on the CPU (plain
-   versions) and on the card (kernels), TF32 off;
+   scoring path (dedup-2D, per-window, shared-2D), the tiled scorer, the
+   host-loop window predictor and the uint8-wire labelmask, and one tiny
+   end2end train step, in float32 on the CPU (plain versions) and on the
+   card (kernels), TF32 off;
 then a JSON line describing the kernels, and the last line
 {"ok": true, "device": {...}}.
 
 Each path of phases 4-6 (serve, serve_dpp, serve_dpp_dense, serve_per_window,
-serve_shared_2d, serve_uint8, train_*, cli_*) runs with every launch counter set to 0 just before
-it and read just after, and fails if a kernel of that path did not launch.
+serve_shared_2d, serve_uint8, serve_host_loop, serve_tiled, train_*,
+train_end2end_convs, cli_*, cli_test_tiled) runs with every launch counter
+set to 0 just before it and read just after, and fails if a kernel of that
+path did not launch.
 """
 from __future__ import annotations
 
@@ -113,6 +129,15 @@ K4_SHAPE = (512, 512, 112)  # LiTS in-plane size, 112 slices
 # K4 launches per served volume as compose_labels makes them: 2 largest
 # components and 3 hole fills, each labelling once, one prep and one finish
 K4_PER_VOLUME = dict(cc_label=5, largest_component=2, fill_holes=3, compose_prep=1, compose_finish=1)
+TILE = 256  # the tiled scorer's in-plane window (serve_tiled, cli_test_tiled)
+# The host loop against the per-window device path, when not byte-identical:
+# both run the same windows in bfloat16 through the same kernels and average
+# in the same order in float32, so a difference can only come from cuDNN
+# taking another algorithm for the last batch (other padding windows), a few
+# bfloat16 roundings of an activation; allow a probability gap of 2^-5
+# (several bfloat16 ulps of a logit near 1) and 1e-4 of the voxels, which
+# thresholds and the largest-component rule can flip
+HOST_LOOP_BOUND = dict(prob=2.0**-5, voxels=1e-4)
 
 
 def card_line() -> str:
@@ -607,7 +632,7 @@ def serve_path(card: str) -> dict:
         f"label counts {counts}, host postprocess {host_pp} [{card}]"
     )
     return dict(launches=launches, model=model, predictor=predictor, cases=cases, labelmaps=labelmaps,
-                seconds=seconds, peak=peak, k1_floor=bsr_per_forward * runs)
+                seconds=seconds, peak=peak, k1_floor=bsr_per_forward * runs, bsr_per_forward=bsr_per_forward)
 
 
 def ellipsoid_case(shape):
@@ -824,6 +849,8 @@ def serve_modes(card: str, serve: dict) -> dict:
         assert float(probs.min()) >= 0.0 and float(probs.max()) <= 1.0 + 1e-5, path
         if path == "serve_uint8":
             assert np.array_equal(lab, serve["labelmaps"][0]), "the uint8 wire's labelmap differs"
+        if path == "serve_per_window":
+            serve["per_window_labelmap"] = lab
         print(f"serve path {path} {knobs}: s/volume {[round(s, 3) for s in seconds]}, device scoring "
               f"{scoring:.3f} s, peak {peak / 2**30:.2f} GiB, probabilities finite in [0, 1], "
               f"label counts {np.bincount(lab.ravel(), minlength=3).tolist()} [{card}]")
@@ -831,10 +858,127 @@ def serve_modes(card: str, serve: dict) -> dict:
     return paths
 
 
-def train_path(card: str, arch: str) -> tuple[dict, dict]:
-    """``train`` for TRAIN_STEPS steps at full width; ms/step over steps 2-4
-    (each step ends in the loss drain's sync: log_every_steps = 1). Returns
-    the launch counts, the recorded kernel calls and the ms/step."""
+def serve_host_loop(card: str, serve: dict) -> dict:
+    """Phase 4's first volume through the host-loop WindowPredictor
+    (``device_resident=False``): its labelmap against the per-window device
+    path's (``dedup_2d=False``: the same windows in the same batches of 8,
+    scored by the same kernels, averaged in the same order, so the same
+    bits unless cuDNN picks another algorithm for the last batch, whose
+    padding differs: repeats of the last window here, window 0 there). If
+    they differ, the count of differing voxels and the largest probability
+    gap are printed and held to HOST_LOOP_BOUND. Returns the launch
+    counts."""
+    import dataclasses
+
+    from hdenseunet_tpu_torch.core.config import Config
+    from hdenseunet_tpu_torch.infer import postprocess
+    from hdenseunet_tpu_torch.infer.predictor import VolumePredictor
+    from hdenseunet_tpu_torch.infer.sliding_window import window_starts
+
+    cfg = Config()
+    cfg.model.compute_dtype = "bfloat16"
+    cfg.infer = dataclasses.replace(cfg.infer, device_resident=False)
+    predictor = VolumePredictor(serve["model"], cfg, arch="end2end", device="cuda")
+    vol, ext = serve["cases"][0]
+    _, z_lo, z_hi = postprocess.liver_mask_extent(ext)
+    n_batches = -(-len(set(window_starts(vol.shape[2], z_lo, z_hi, cfg.infer))) // cfg.infer.window_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    seconds, split = [], []
+    for _ in range(2):  # the first pays the first calls of the batch shape
+        t0 = time.perf_counter()
+        handle = predictor.dispatch(vol, ext)  # scores: windows up, probabilities down
+        t1 = time.perf_counter()
+        lab = predictor.collect(handle)  # thresholds and postprocesses on the host
+        seconds.append(time.perf_counter() - t0)
+        split.append((t1 - t0, seconds[-1] - (t1 - t0)))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert launches == only(affine_relu=2 * n_batches * serve["bsr_per_forward"]), (launches, n_batches)
+    differ = int((lab != serve["per_window_labelmap"]).sum())
+    gap = 0.0
+    if differ:
+        cfg_w = Config()
+        cfg_w.model.compute_dtype = "bfloat16"
+        cfg_w.infer = dataclasses.replace(cfg_w.infer, dedup_2d=False)
+        device = VolumePredictor(serve["model"], cfg_w, arch="end2end", device="cuda").windows
+        want = device.score(vol - cfg.infer.mean, z_lo, z_hi)
+        got = predictor.windows.predict_volume(vol - cfg.infer.mean, z_lo, z_hi)
+        gap = max(float((torch.from_numpy(g).cuda() - want[..., c]).abs().max()) for g, c in zip(got, (1, 2)))
+        del want
+    assert differ <= HOST_LOOP_BOUND["voxels"] * lab.size and gap <= HOST_LOOP_BOUND["prob"], (differ, gap)
+    print(f"serve path serve_host_loop (device_resident=False): {n_batches} batches of "
+          f"{cfg.infer.window_batch} windows, s/volume {[round(t, 3) for t in seconds]}, scoring and "
+          f"postprocess s {[(round(a, 3), round(b, 3)) for a, b in split]}, peak {peak / 2**30:.2f} GiB; "
+          f"labelmap against the per-window device path's: {differ} voxels differ, largest probability "
+          f"gap {gap:.3g}{' (byte-identical)' if not differ else ''} [{card}]")
+    return launches
+
+
+def tiled_batches(shape, tile: int, cols: int, wb: int) -> tuple[int, int]:
+    """(windows, batches) of the tiled scorer over a volume of ``shape``,
+    from tile_origins, as TiledVolumeScorer.plan lays them out."""
+    from hdenseunet_tpu_torch.infer.device_pipeline import tile_origins
+
+    win = (tile, tile, cols)
+    steps = ((tile // 3) * 2, (tile // 3) * 2, max(1, (cols // 3) * 2))
+    n = int(np.prod([len(tile_origins(max(d, w), w, st)) for d, w, st in zip(shape, win, steps)]))
+    return n, -(-n // wb)
+
+
+def serve_tiled(card: str, serve: dict) -> dict:
+    """Phase 4's first volume through TiledPredictor with tile 256: windows
+    of 256x256x8 stepping 170 in x and y and 4 in z over the whole volume.
+    The probabilities are finite in [0, 1] and every voxel's count is above
+    0. Prints device scoring s, s/volume and peak memory. Returns the launch
+    counts."""
+    from hdenseunet_tpu_torch.core.config import Config
+    from hdenseunet_tpu_torch.infer.predictor import TiledPredictor
+
+    cfg = Config()
+    cfg.model.compute_dtype = "bfloat16"
+    predictor = TiledPredictor(serve["model"], cfg, tile=TILE, arch="end2end", device="cuda")
+    vol, ext = serve["cases"][0]
+    windows, batches = tiled_batches(vol.shape, TILE, cfg.infer.input_cols, cfg.infer.window_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    seconds = []
+    for _ in range(2):  # the first pays the first calls of the tile shape
+        t0 = time.perf_counter()
+        lab = predictor.segment(vol, ext)
+        seconds.append(time.perf_counter() - t0)
+    launches = read_counts()
+    assert launches == only(affine_relu=2 * batches * serve["bsr_per_forward"]), (launches, batches)
+    assert lab.shape == vol.shape and set(np.unique(lab).tolist()) <= {0, 1, 2}
+    scorer = predictor.scorer
+    plan = scorer.plan(vol.shape)
+    assert len(plan["origins"]) == windows
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score, count = scorer._score_tiles(vol - cfg.infer.mean, plan)
+    torch.cuda.synchronize()
+    scoring = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    probs = score / count.clamp_min(1e-4)[..., None]
+    assert bool((count > 0).all()), "a voxel no window covers"
+    assert bool(torch.isfinite(probs).all()) and float(probs.min()) >= 0.0 and float(probs.max()) <= 1.0 + 1e-5
+    print(f"serve path serve_tiled (tile {TILE}): {windows} windows of {TILE}x{TILE}x{cfg.infer.input_cols} "
+          f"in {batches} batches of {cfg.infer.window_batch}, s/volume {[round(t, 3) for t in seconds]}, "
+          f"device scoring {scoring:.3f} s, peak {peak / 2**30:.2f} GiB, probabilities finite in [0, 1], "
+          f"every voxel's count in [{int(count.min())}, {int(count.max())}], label counts "
+          f"{np.bincount(lab.ravel(), minlength=3).tolist()} [{card}]")
+    del score, count, probs
+    return launches
+
+
+def train_path(card: str, arch: str, policy: str = "full") -> dict:
+    """``train`` for TRAIN_STEPS steps at full width under ``remat_policy``
+    ``policy``; ms/step over steps 2-4 (each step ends in the loss drain's
+    sync: log_every_steps = 1). Returns the launch counts, the recorded
+    kernel calls, the ms/step, the losses, the peak memory and the final
+    model's state_dict."""
     from hdenseunet_tpu_torch.core.config import Config
     from hdenseunet_tpu_torch.data.sampler import synthetic_batches
     from hdenseunet_tpu_torch.train.trainer import train
@@ -844,8 +988,9 @@ def train_path(card: str, arch: str) -> tuple[dict, dict]:
     cfg.train.arch = arch
     cfg.train.batch = 8
     cfg.train.remat = True
+    cfg.train.remat_policy = policy
     cfg.train.log_every_steps = 1
-    cfg.train.save_path = str(BUILD / "chip_smoke_train" / arch)
+    cfg.train.save_path = str(BUILD / "chip_smoke_train" / f"{arch}_{policy}")
     mode = "2d" if arch == "2d" else "hybrid"
     gen = synthetic_batches(
         mode=mode, batch=cfg.train.batch, input_size=cfg.model.input_size,
@@ -865,7 +1010,7 @@ def train_path(card: str, arch: str) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with recorded_calls() as calls:
-        train(cfg, timed(), max_steps=TRAIN_STEPS, device="cuda", log_fn=lambda *a: None)
+        state = train(cfg, timed(), max_steps=TRAIN_STEPS, device="cuda", log_fn=lambda *a: None)
     torch.cuda.synchronize()
     end = time.perf_counter()
     launches = read_counts()
@@ -883,13 +1028,75 @@ def train_path(card: str, arch: str) -> tuple[dict, dict]:
     slices = cfg.train.batch * (cfg.model.input_cols if arch != "2d" else 1)
     shape = f"{cfg.model.input_size}^2" + (f"x{cfg.model.input_cols}" if arch != "2d" else "")
     print(
-        f"train path {arch}: {steps} steps, full preset bf16 remat, batch {cfg.train.batch} x "
+        f"train path {arch}: {steps} steps, full preset bf16 remat ({policy}), batch {cfg.train.batch} x "
         f"{shape}: first step {(asked[1] - asked[0]) * 1e3:.1f} ms, {ms:.1f} ms/step over steps "
         f"2-{steps}, {slices / ms * 1e3:.1f} slices/s, peak {peak / 2**30:.2f} GiB, losses "
         f"{[round(v, 5) for v in losses]}, launches {launches} "
         f"(K1 forward {launches['affine_relu'] // steps}/step) [{card}]"
     )
-    return launches, calls, ms
+    weights = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    return dict(launches=launches, calls=calls, ms=ms, losses=losses, peak=peak, weights=weights)
+
+
+def train_convs_path(card: str, full: dict) -> dict:
+    """Phase 5's end2end run again under ``remat_policy='convs'`` (each conv
+    block's checkpoint keeps its convolutions' outputs; only the
+    BN/Scale/ReLU/dropout chain reruns): the same launches per step as the
+    'full' run; ms/step and peak memory beside the 'full' run's; its losses
+    beside the 'full' run's and a second 'full' run's, whose gap is the
+    card's own run-to-run spread (neither policy repeats its losses past
+    the first step: sums by float atomics in the backward reorder). Then one
+    step of each policy from the same seeded weights and batch, held to
+    phase 7's bars for a step against another. Returns the launch counts."""
+    from hdenseunet_tpu_torch.core.config import Config
+    from hdenseunet_tpu_torch.data.sampler import synthetic_batches
+    from hdenseunet_tpu_torch.train.trainer import create_train_state, train_step
+
+    steps = TRAIN_STEPS
+    per_step = dict(affine_relu=BSR_2D + REMAT_2D, affine_relu_backward=BSR_2D, wce_forward=1, wce_backward=1)
+    convs = train_path(card, "end2end", "convs")
+    again = train_path(card, "end2end")
+    assert convs["launches"] == full["launches"] == only(**{k: n * steps for k, n in per_step.items()}), (
+        convs["launches"], full["launches"])
+    assert abs(convs["losses"][0] - full["losses"][0]) <= 1e-5 * abs(full["losses"][0])
+    gap = max(abs(a - b) for a, b in zip(convs["losses"], full["losses"]))
+    spread = max(abs(a - b) for a, b in zip(again["losses"], full["losses"]))
+    del again
+
+    runs = {}
+    for policy in ("full", "convs"):
+        cfg = Config()
+        cfg.model.compute_dtype = "bfloat16"
+        cfg.train.remat_policy = policy
+        batch = next(synthetic_batches(mode="hybrid", batch=8, input_size=cfg.model.input_size,
+                                       input_cols=cfg.model.input_cols, seed=SEED))
+        st = create_train_state(cfg, "end2end", device="cuda")
+        before = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
+        reset_counts()
+        loss = float(train_step(st, batch, cfg))
+        assert read_counts() == only(**per_step), (policy, read_counts())
+        runs[policy] = (loss, before, {k: v.detach().clone() for k, v in st.model.state_dict().items()})
+        del st
+    (loss_f, before, after_f), (loss_c, before_c, after_c) = runs["full"], runs["convs"]
+    assert abs(loss_c - loss_f) <= 1e-5 * abs(loss_f), (loss_c, loss_f)
+    worst = 0.0
+    for name, w_full in after_f.items():
+        assert torch.equal(before[name], before_c[name]), name
+        if name.endswith(("moving_mean", "moving_variance")):
+            torch.testing.assert_close(after_c[name], w_full, rtol=1e-4, atol=1e-4)
+            continue
+        d_full, d_convs = w_full - before[name], after_c[name] - before[name]
+        allowed = 2 * ULP_FP32 * w_full.abs() + 1e-9
+        excess = float(((d_convs - d_full).abs() - allowed).clamp_min(0).norm())
+        assert excess <= TRAIN_UPDATE_RTOL * float(d_full.norm()), (name, excess, float(d_full.norm()))
+        worst = max(worst, excess / float(d_full.norm()) if d_full.any() else 0.0)
+    print(f"train path end2end remat_policy='convs': {convs['ms']:.1f} ms/step against 'full' "
+          f"{full['ms']:.1f}, peak {convs['peak'] / 2**30:.2f} GiB against {full['peak'] / 2**30:.2f}; "
+          f"launches per step as 'full'; losses {[round(v, 6) for v in convs['losses']]} against 'full' "
+          f"{[round(v, 6) for v in full['losses']]}: largest gap {gap:.3g}, against {spread:.3g} between "
+          f"two 'full' runs; one step from the same weights and batch: loss {loss_c:.7g} against "
+          f"{loss_f:.7g}, worst update error {worst:.3g} of its tensor's update norm [{card}]")
+    return convs["launches"]
 
 
 @contextlib.contextmanager
@@ -990,9 +1197,10 @@ def sampler_rate(prep: Path, mode: str, threads: int = 8, batches: int = 6) -> f
     return rate
 
 
-def cli_path(card: str, synthetic_ms: dict) -> dict:
-    """The staged workflow through the port's CLI at full width (phase 6).
-    Returns the launch counts of each command."""
+def cli_path(card: str, synthetic_ms: dict, bsr_per_forward: int) -> dict:
+    """The staged workflow through the port's CLI at full width (phase 6),
+    ``test`` once more with ``--tiled 256``. Returns the launch counts of
+    each command."""
     from hdenseunet_tpu_torch.core import params as P
     from hdenseunet_tpu_torch.data import nifti
     from hdenseunet_tpu_torch.train import checkpoint as C
@@ -1066,6 +1274,17 @@ def cli_path(card: str, synthetic_ms: dict) -> dict:
         out, _ = nifti.read(root / "res" / "test-segmentation-0.nii")
         out = np.asarray(out)
         assert out.shape == vol.shape and set(np.unique(out).tolist()) <= {0, 1, 2}, np.unique(out)
+        tiled_s, _ = run_cli(["test", "--data", str(dirs["tv"]), "--livermask", str(dirs["tm"]),
+                              "--weights", str(cke), "--save-path", str(root / "res_tiled"),
+                              "--num-volumes", "1", "--tiled", str(TILE),
+                              "--set", "model.compute_dtype", "bfloat16"])
+        launches["cli_test_tiled"] = read_counts()
+        windows, batches = tiled_batches(vol.shape, TILE, 8, 8)
+        assert launches["cli_test_tiled"] == only(affine_relu=batches * bsr_per_forward), (
+            launches["cli_test_tiled"], batches)
+        tiled, _ = nifti.read(root / "res_tiled" / "test-segmentation-0.nii")
+        tiled = np.asarray(tiled)
+        assert tiled.shape == vol.shape and set(np.unique(tiled).tolist()) <= {0, 1, 2}, np.unique(tiled)
         _, text = run_cli(["evaluate", "--pred", str(root / "res"), "--truth", str(dirs["truth"]),
                            "--num-volumes", "1"])
         assert "mean per-case Dice" in text
@@ -1078,7 +1297,9 @@ def cli_path(card: str, synthetic_ms: dict) -> dict:
                   f"ms/step (phase 5, {arch}, steps 2-4); saves (s, bytes) {saves} [{card}]")
         print(f"cli resume: restore {restore_s:.3f} s of {restore_bytes} bytes, bit-identical to the "
               f"saved state; test: {[round(s, 3) for s in seconds]} s/volume {CLI_SHAPE}, launches "
-              f"{launches['cli_test']} [{card}]")
+              f"{launches['cli_test']}; test --tiled {TILE}: {windows} windows in {batches} batches, "
+              f"{[round(s, 3) for s in tiled_s]} s/volume, labelmap {tiled.shape} with label counts "
+              f"{np.bincount(tiled.ravel(), minlength=3).tolist()} [{card}]")
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1087,13 +1308,14 @@ def cli_path(card: str, synthetic_ms: dict) -> dict:
 def model_check(card: str) -> float:
     """The tiny fp32 scorer, card (kernels) against CPU (plain versions), in
     each scoring path: the dedup-2D default, the per-window path and the
-    shared-2D mode; and the uint8 wire's labelmask at the default path's
-    thresholds."""
+    shared-2D mode; the tiled scorer and the host-loop window predictor;
+    and the uint8 wire's labelmask at the default path's thresholds."""
     import dataclasses
 
     from hdenseunet_tpu_torch.core.config import InferConfig
     from hdenseunet_tpu_torch.core.initializers import init_model
-    from hdenseunet_tpu_torch.infer.device_pipeline import DeviceVolumeScorer
+    from hdenseunet_tpu_torch.infer.device_pipeline import DeviceVolumeScorer, TiledVolumeScorer
+    from hdenseunet_tpu_torch.infer.sliding_window import WindowPredictor
     from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
     from hdenseunet_tpu_torch.ops.fused_affine import affine_relu
 
@@ -1114,6 +1336,21 @@ def model_check(card: str) -> float:
         assert err <= MODEL_TOL, (mode, err)
         worst = max(worst, err)
         probs = want if mode == "dedup-2D" else probs
+        print(f"model check: tiny fp32 {mode} scorer, card (K1) vs CPU (plain) max_abs_err "
+              f"{err:.3g} [{card}]")
+    for mode, make in (
+        ("tiled (tile 32)", lambda m, d: lambda: TiledVolumeScorer(m, InferConfig(window_batch=4), tile=32,
+                                                                   device=d).score(vol).cpu().numpy()),
+        ("host-loop", lambda m, d: lambda: np.stack(WindowPredictor(m, InferConfig(), device=d)
+                                                    .predict_volume(vol, 4, 20), axis=-1)),
+    ):
+        want = make(cpu_model, "cpu")()
+        before = affine_relu.launches
+        got = make(gpu_model, "cuda")()
+        assert affine_relu.launches > before, f"the card's {mode} scorer did not run K1"
+        err = float(np.abs(got - want).max())
+        assert err <= MODEL_TOL and want.max() > 0, (mode, err)
+        worst = max(worst, err)
         print(f"model check: tiny fp32 {mode} scorer, card (K1) vs CPU (plain) max_abs_err "
               f"{err:.3g} [{card}]")
     # the uint8 wire: thresholds midway between neighbouring probabilities
@@ -1197,11 +1434,19 @@ def main() -> None:
     paths, calls, synthetic_ms = {"serve": serve["launches"]}, {}, {}
     paths.update(serve_dpp_path(card, serve))
     paths.update(serve_modes(card, serve))
+    paths["serve_host_loop"] = serve_host_loop(card, serve)
+    paths["serve_tiled"] = serve_tiled(card, serve)
     k4 = check_k4(card, serve)
+    bsr_per_forward = serve["bsr_per_forward"]
     del serve
+    runs = {}
     for arch in ("end2end", "2d"):
-        paths[f"train_{arch}"], calls[f"train_{arch}"], synthetic_ms[arch] = train_path(card, arch)
-    paths.update(cli_path(card, synthetic_ms))
+        runs[arch] = train_path(card, arch)
+        paths[f"train_{arch}"], calls[f"train_{arch}"] = runs[arch]["launches"], runs[arch]["calls"]
+        synthetic_ms[arch] = runs[arch]["ms"]
+    paths["train_end2end_convs"] = train_convs_path(card, runs["end2end"])
+    del runs
+    paths.update(cli_path(card, synthetic_ms, bsr_per_forward))
     k1_bwd.update(sweep_k1_backward(card, calls["train_end2end"]["k1"], TRAIN_STEPS))
     k1_bwd["steps"] = {"train_end2end": dict(
         launches=BSR_2D, ms=k1_bwd["step_ms"], bound_ms=k1_bwd["step_bound_ms"])}

@@ -6,14 +6,18 @@
     python -m hdenseunet_tpu_torch train --arch end2end --data prep --init-from ck2d --checkpoint-dir cke
     python -m hdenseunet_tpu_torch train --arch end2end --data prep --checkpoint-dir cke --resume
     python -m hdenseunet_tpu_torch test --data tv --livermask tm --weights cke --save-path res
+    python -m hdenseunet_tpu_torch test --data tv --livermask tm --weights cke --tiled 256
     python -m hdenseunet_tpu_torch evaluate --pred res --truth truth --num-volumes 1
+    python -m hdenseunet_tpu_torch convert-weights model.h5 weights.npz [--submodel denseu161]
+    python -m hdenseunet_tpu_torch export-weights cke model.h5 --arch end2end
 
 The flags are the JAX CLI's, with ``--set section.key value`` overrides of
 the typed Config, plus ``--device`` (``cuda`` unless asked otherwise) on
-``train`` and ``test``. ``--init-from`` and ``--weights`` take a port
-checkpoint directory or an ``.npz`` of '{layer}/{leaf}' arrays, which the
-JAX package's ``convert-weights`` writes from a Keras HDF5 file; that
-conversion and ``export-weights`` need h5py and stay with the JAX package.
+``train``, ``test`` and ``export-weights``. ``--init-from`` and
+``--weights`` take a port checkpoint directory or an ``.npz`` of
+'{layer}/{leaf}' arrays, which ``convert-weights`` writes from a Keras HDF5
+file. ``convert-weights`` and ``export-weights`` need h5py; without it they
+exit, and the ``.npz`` made where h5py is installed is the way in.
 """
 from __future__ import annotations
 
@@ -125,8 +129,6 @@ def cmd_test(args):
     from .train import trainer
     from .weights import convert as wconv
 
-    if args.tiled is not None:
-        raise NotImplementedError("the tiled scorer (--tiled) is not ported yet")
     cfg = _load_config(args.config, dict(args.set or []))
     arch = args.arch
     cfg.train.arch = arch
@@ -177,8 +179,49 @@ def cmd_test(args):
         save_dir=args.save_path,
         num_volumes=args.num_volumes,
         arch=arch,
+        tiled=args.tiled,
         device=args.device,
     )
+
+
+def _require_h5py():
+    """Exit with the converter's message when h5py cannot be imported."""
+    from .weights import convert as wconv
+
+    try:
+        wconv.h5py_module()
+    except ImportError as e:
+        raise SystemExit(str(e)) from None
+
+
+def cmd_convert_weights(args):
+    from .weights import convert as wconv
+
+    _require_h5py()
+    keys = wconv.convert_checkpoint(args.src, args.dst, submodel=args.submodel)
+    print(f"converted {len(keys)} weight arrays -> {args.dst}")
+
+
+def cmd_export_weights(args):
+    """A port checkpoint -> Keras-2.0.8 by-name HDF5 (take a model trained
+    here back to the reference stack)."""
+    from .core import params as P
+    from .train import checkpoint as ckpt_lib
+    from .train import trainer
+    from .weights import convert as wconv
+
+    _require_h5py()
+    cfg = _load_config(args.config, dict(args.set or []))
+    cfg.train.arch = args.arch
+    state = trainer.create_train_state(cfg, args.arch, device=args.device)
+    ckpt = ckpt_lib.Checkpointer(args.checkpoint)
+    restored = ckpt.restore_best(state) if args.restore == "best" else ckpt.restore_latest(state)
+    if restored is None:
+        raise SystemExit(f"no {args.restore} checkpoint under {args.checkpoint}")
+    params, bn_state = P.to_numpy(restored.model)
+    wconv.save_keras_hdf5(args.dst, params, bn_state)
+    n = sum(len(v) for v in params.values())
+    print(f"exported {n} weight arrays (+BN stats) -> {args.dst}")
 
 
 def cmd_evaluate(args):
@@ -259,10 +302,28 @@ def build_parser():
     sp.add_argument("--arch", choices=["3dpart", "end2end"], default="end2end")
     sp.add_argument("--num-volumes", type=int, default=None)
     sp.add_argument("--tiled", type=int, default=None, metavar="TILE",
-                    help="x/y/z-tiled inference (not ported: raises)")
+                    help="x/y/z-tiled inference with TILE^2 in-plane windows "
+                         "(reference predict_window_mulgpu equivalent)")
     sp.add_argument("--device", default="cuda", help="torch device (default cuda)")
     sp.add_argument("--set", nargs=2, action="append", metavar=("KEY", "VAL"))
     sp.set_defaults(fn=cmd_test)
+
+    sp = sub.add_parser("convert-weights", help="Keras HDF5 -> npz of {layer}/{leaf} arrays")
+    sp.add_argument("src")
+    sp.add_argument("dst")
+    sp.add_argument("--submodel", default=None,
+                    choices=[None, "model_1", "denseu161", "auto3d_residual_conv"])
+    sp.set_defaults(fn=cmd_convert_weights)
+
+    sp = sub.add_parser("export-weights", help="port checkpoint -> Keras HDF5")
+    sp.add_argument("checkpoint", help="checkpoint directory")
+    sp.add_argument("dst", help="output .h5 path")
+    sp.add_argument("--restore", choices=["latest", "best"], default="latest")
+    sp.add_argument("--arch", choices=["2d", "3dpart", "end2end"], default="2d")
+    sp.add_argument("--config", default=None)
+    sp.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    sp.add_argument("--set", nargs=2, action="append", metavar=("KEY", "VAL"))
+    sp.set_defaults(fn=cmd_export_weights)
 
     sp = sub.add_parser("evaluate", help="Dice of predicted vs truth labelmaps")
     sp.add_argument("--pred", required=True)

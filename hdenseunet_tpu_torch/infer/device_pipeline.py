@@ -18,12 +18,17 @@ Wires: the 2-bit packed labelmask (``wire_bits=2``), the uint8 one
 the CC postprocess on the card (``infer/device_postprocess.py``), dense or
 bbox-cropped (``sparse_wire``).
 
-The window-grid helpers are pure numpy, copied from the JAX package
-(sliding_window.window_starts, device_pipeline.plan_windows / make_grid /
-make_grid_structured) and pinned to the originals by tests.
+:class:`TiledVolumeScorer` is the x/y/z-tiled scorer (reference
+predict_window_mulgpu): windows of (tile, tile, input_cols) over the whole
+volume, full-window softmax, a per-voxel count.
 
-Not ported yet: the tiled scorer, the timing helpers (compute_timer,
-compute_seconds, estimate_flops) and the ``mesh`` argument.
+The window-grid helpers are pure numpy, copied from the JAX package
+(device_pipeline.plan_windows / make_grid / make_grid_structured /
+tile_origins; ``window_starts`` lives in ``sliding_window.py``) and pinned
+to the originals by tests.
+
+Not ported yet: the timing helpers (compute_timer, compute_seconds,
+estimate_flops) and the ``mesh`` argument.
 """
 from __future__ import annotations
 
@@ -35,21 +40,10 @@ from ..models.hybrid import HDenseUNet
 from ..models import layers as L
 from ..ops.cc import pack2bits
 from .device_postprocess import compose_final, compose_packed
+from .sliding_window import window_starts
 
 Z_BUCKET = 64
 _WIRE_BUCKET = 16  # wire z rounds up to this
-
-
-def window_starts(z: int, mini_z: int, maxi_z: int, cfg) -> list[int]:
-    """Window start offsets, replicating lib/funcs.py:19-28 exactly."""
-    cols = cfg.input_cols
-    stride = cfg.window_stride
-    right = int(min(z, maxi_z + cfg.liver_margin_hi) - cols)
-    left = max(0, min(mini_z - cfg.liver_margin_lo, right))
-    starts = []
-    for s in range(left, right + stride, stride):
-        starts.append(min(s, z - cols))
-    return starts
 
 
 def plan_windows(z_pad: int, cfg) -> int:
@@ -202,12 +196,7 @@ class DeviceVolumeScorer:
         self.shared_2d = getattr(cfg, "shared_2d", False)
         self.device = torch.device(device)
         self.dtype = getattr(torch, compute_dtype)
-        self.model = model.to(self.device).eval()
-        for m in self.model.modules():
-            if isinstance(m, L.Conv):
-                fmt = torch.channels_last if m.ndim == 2 else torch.channels_last_3d
-                m.to(dtype=self.dtype, memory_format=fmt)
-        L.freeze_bn_scale(self.model)
+        self.model = L.prepare_serving(model, self.device, self.dtype)
 
     def _bucketed(self, z: int) -> int:
         need = max(z, self.cfg.input_cols)
@@ -487,3 +476,100 @@ class DeviceVolumeScorer:
         if gx > xs and gy > ys and gz > gz_lo:
             out[xs:gx, ys:gy, gz_lo:gz] = crop[: gx - xs, : gy - ys, : gz - gz_lo]
         return out
+
+
+# ---------------------------------------------------------------------------
+# x/y/z-tiled inference (reference lib/funcs.py:54-129 predict_window_mulgpu)
+# ---------------------------------------------------------------------------
+
+
+def tile_origins(dim: int, win: int, step: int) -> list[int]:
+    """Tile start offsets along one axis: stride `step`, clamped to dim-win.
+
+    The reference walks range(0, dim-win+step, step) and clamps late inside a
+    broken elif chain (funcs.py:74-96) and can double-count or crash on
+    remainder batches; here clamped duplicates are deduped (overlap-average
+    semantics are unchanged — identical windows carry identical probs).
+    """
+    assert dim >= win, (dim, win)
+    out = sorted({min(s, dim - win) for s in range(0, dim - win + step, step)})
+    return out
+
+
+class TiledVolumeScorer:
+    """The reference's x/y/z-tiled inference on one device: windows of
+    (tile, tile, input_cols) stepping 2/3 of their size in every axis over
+    the whole volume (no liver z-range), ``window_batch`` windows per
+    forward. For volumes whose in-plane extent exceeds what a full-frame
+    window batch can hold. Takes over ``model`` as
+    :class:`DeviceVolumeScorer` does."""
+
+    def __init__(
+        self,
+        model: HDenseUNet,
+        cfg,
+        *,
+        tile: int = 256,
+        arch: str = "end2end",
+        compute_dtype: str = "float32",
+        num_classes: int = 3,
+        device="cuda",
+    ):
+        if tile % 32:
+            raise ValueError(f"tile must be divisible by 32 (got {tile})")
+        self.cfg = cfg
+        self.tile = tile
+        self.arch = arch
+        self.num_classes = num_classes
+        self.device = torch.device(device)
+        self.dtype = getattr(torch, compute_dtype)
+        self.model = L.prepare_serving(model, self.device, self.dtype)
+
+    def plan(self, vol_shape) -> dict:
+        """The padded shape, the window size and the window origins, in the
+        order they are scored (device_pipeline.py:810-830)."""
+        x0, y0, z0 = vol_shape
+        win = (self.tile, self.tile, self.cfg.input_cols)
+        padded = tuple(max(d, w) for d, w in zip((x0, y0, z0), win))
+        steps = ((win[0] // 3) * 2, (win[1] // 3) * 2, max(1, (win[2] // 3) * 2))
+        axes = [tile_origins(d, w, s) for d, w, s in zip(padded, win, steps)]
+        origins = [(a, b, c) for a in axes[0] for b in axes[1] for c in axes[2]]
+        return dict(padded=padded, win=win, origins=origins, wb=max(1, self.cfg.window_batch))
+
+    @torch.inference_mode()
+    def _score_tiles(self, vol: np.ndarray, p: dict):
+        """(score, count) on the device over the padded volume: each
+        window's full softmax added into score, 1 into each of its voxels'
+        count (device_pipeline.py:725-777). Each batch is filled up to
+        ``wb`` with weight-0 windows at the origin, which are scored and
+        add nothing."""
+        x0, y0, z0 = vol.shape
+        vol_p = np.zeros(p["padded"], np.float32)
+        vol_p[:x0, :y0, :z0] = vol
+        vol_d = torch.from_numpy(vol_p).to(self.device).to(self.dtype)
+        score = torch.zeros(p["padded"] + (self.num_classes,), dtype=torch.float32, device=self.device)
+        count = torch.zeros(p["padded"], dtype=torch.float32, device=self.device)
+        (wx, wy, wz), org, wb = p["win"], p["origins"], p["wb"]
+        for i in range(0, len(org), wb):
+            chunk = org[i : i + wb]
+            batch = chunk + [(0, 0, 0)] * (wb - len(chunk))
+            wins = torch.stack([vol_d[a : a + wx, b : b + wy, c : c + wz] for a, b, c in batch])
+            logits = self.model(wins.unsqueeze(-1), arch=self.arch)
+            probs = torch.softmax(logits.float(), dim=-1)
+            for j, (a, b, c) in enumerate(chunk):
+                score[a : a + wx, b : b + wy, c : c + wz].add_(probs[j])
+                count[a : a + wx, b : b + wy, c : c + wz] += 1.0
+        return score, count
+
+    def score(self, vol: np.ndarray):
+        """vol: (X, Y, Z) mean-subtracted -> (X, Y, Z, C) float32
+        probabilities on the device: the sum over windows divided by
+        max(count, 1e-4) per voxel (device_pipeline.py:778)."""
+        score, count = self._score_tiles(vol, self.plan(vol.shape))
+        x0, y0, z0 = vol.shape
+        return (score / count.clamp_min(1e-4)[..., None])[:x0, :y0, :z0]
+
+    def predict_volume(self, vol: np.ndarray):
+        """(liver_prob, tumor_prob) numpy arrays (X, Y, Z)."""
+        score = self.score(vol).cpu().numpy()
+        return score[..., self.num_classes - 2], score[..., self.num_classes - 1]

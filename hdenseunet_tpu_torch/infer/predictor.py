@@ -1,9 +1,12 @@
 """End-to-end volume segmentation (counterpart of
 hdenseunet_tpu/infer/predictor.py; reference test.py:39-115).
 
-The scorer runs on the device. The connected-component postprocess runs on
-the host (``infer/postprocess.py`` with ``native/postprocess.cpp``) or, with
-``InferConfig.device_postprocess``, on the device after the scoring
+The scorer runs on the device: the device-resident scorer by default, the
+host-loop ``WindowPredictor`` with ``InferConfig.device_resident=False``, or
+the x/y/z-tiled scorer through :class:`TiledPredictor`. The
+connected-component postprocess runs on the host (``infer/postprocess.py``
+with ``native/postprocess.cpp``) or, with ``InferConfig.device_postprocess``
+and the device-resident scorer, on the device after the scoring
 (``infer/device_postprocess.py``); both give the reference's labelmap byte
 for byte.
 """
@@ -17,17 +20,17 @@ import numpy as np
 
 from ..data import nifti
 from . import postprocess
-from .device_pipeline import DeviceVolumeScorer
+from .device_pipeline import DeviceVolumeScorer, TiledVolumeScorer
+from .sliding_window import WindowPredictor
 
 
 class VolumePredictor:
     """model + config -> callable volume segmenter on ``device``."""
 
     def __init__(self, model, cfg, *, arch: str = "end2end", device="cuda"):
-        if not cfg.infer.device_resident:
-            raise NotImplementedError("the host-loop window predictor is not ported yet")
         self.cfg = cfg
-        self.windows = DeviceVolumeScorer(
+        scorer = DeviceVolumeScorer if cfg.infer.device_resident else WindowPredictor
+        self.windows = scorer(
             model,
             cfg.infer,
             arch=arch,
@@ -43,10 +46,14 @@ class VolumePredictor:
     def dispatch(self, vol: np.ndarray, ext_liver_mask: np.ndarray):
         """Upload and queue one volume's scoring WITHOUT fetching; pair with
         :meth:`collect`. With ``device_postprocess`` the CC postprocess is
-        queued too, and the handle's kind is "final"."""
-        img = np.asarray(vol, np.float32) - self.cfg.infer.mean  # test.py:55
+        queued too, and the handle's kind is "final". The host loop scores
+        the volume here and returns its probabilities ("probs")."""
+        icfg = self.cfg.infer
+        img = np.asarray(vol, np.float32) - icfg.mean  # test.py:55
         mask, z_lo, z_hi = postprocess.liver_mask_extent(ext_liver_mask)
-        if self.cfg.infer.device_postprocess:
+        if not icfg.device_resident:
+            return "probs", self.windows.predict_volume(img, z_lo, z_hi), mask
+        if icfg.device_postprocess:
             return "final", self.windows.labelmask_async(img, z_lo, z_hi, ext_mask=mask), None
         return "packed", self.windows.labelmask_async(img, z_lo, z_hi), mask
 
@@ -54,10 +61,44 @@ class VolumePredictor:
         """Fetch a dispatched volume's labelmask and, unless the device
         postprocessed it, postprocess it on the host."""
         kind, payload, mask = handle
+        if kind == "probs":
+            return _compose(payload, mask, self.cfg.infer)
         labels = self.windows.labelmask_collect(payload)
         if kind == "final":
             return labels
         return postprocess.compose_from_masks(labels >= 1, labels >= 3, mask)
+
+
+def _compose(probs, mask, icfg) -> np.ndarray:
+    """(liver_prob, tumor_prob) and the dilated external mask -> labelmap,
+    thresholded and postprocessed on the host (test.py:73-115)."""
+    liver_prob, tumor_prob = probs
+    return postprocess.compose_labelmap(
+        liver_prob, tumor_prob, mask, thres_liver=icfg.thres_liver, thres_tumor=icfg.thres_tumor,
+    )
+
+
+class TiledPredictor:
+    """Volume segmenter over the x/y/z-tiled scorer (reference
+    predict_window_mulgpu analog), for in-plane extents too large for
+    full-frame windows. Same postprocess as VolumePredictor's host loop."""
+
+    def __init__(self, model, cfg, *, tile: int, arch: str = "end2end", device="cuda"):
+        self.cfg = cfg
+        self.scorer = TiledVolumeScorer(
+            model,
+            cfg.infer,
+            tile=tile,
+            arch=arch,
+            compute_dtype=cfg.model.compute_dtype,
+            num_classes=cfg.model.num_classes,
+            device=device,
+        )
+
+    def segment(self, vol: np.ndarray, ext_liver_mask: np.ndarray) -> np.ndarray:
+        img = np.asarray(vol, np.float32) - self.cfg.infer.mean
+        mask, _, _ = postprocess.liver_mask_extent(ext_liver_mask)
+        return _compose(self.scorer.predict_volume(img), mask, self.cfg.infer)
 
 
 def predict_directory(
@@ -69,6 +110,7 @@ def predict_directory(
     save_dir,
     num_volumes: int | None = None,
     arch: str = "end2end",
+    tiled: int | None = None,
     device="cuda",
     log=print,
 ):
@@ -76,14 +118,20 @@ def predict_directory(
 
     Mirrors the reference CLI loop (test.py:44-115): volume ``{id}.nii`` +
     external mask ``{id}-ori.nii`` -> ``test-segmentation-{id}.nii``. The next
-    volume's NIfTI read rides a loader thread, and volume i+1 is dispatched
-    before volume i is collected.
+    volume's NIfTI read rides a loader thread. With the device-resident
+    scorer, volume i+1 is dispatched before volume i is collected; the tiled
+    scorer (``tiled``: the tile size) and the host loop segment one volume
+    at a time, each timed alone.
     """
     data_dir = Path(data_dir)
     mask_dir = Path(liver_mask_dir)
     out_dir = Path(save_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    predictor = VolumePredictor(model, cfg, arch=arch, device=device)
+    if tiled:
+        predictor = TiledPredictor(model, cfg, tile=tiled, arch=arch, device=device)
+    else:
+        predictor = VolumePredictor(model, cfg, arch=arch, device=device)
+    pipelined = not tiled and cfg.infer.device_resident
 
     n = num_volumes if num_volumes is not None else cfg.data.num_test_volumes
     times = []
@@ -111,10 +159,17 @@ def predict_directory(
         for i in range(n):
             vol, hdr, mask = pending.result()
             pending = pool.submit(load, i + 1) if i + 1 < n else None
-            handle = predictor.dispatch(vol, mask)
-            if inflight is not None:
-                finish(inflight)
-            inflight = (handle, hdr, vol.shape, i)
+            if pipelined:
+                handle = predictor.dispatch(vol, mask)
+                if inflight is not None:
+                    finish(inflight)
+                inflight = (handle, hdr, vol.shape, i)
+            else:
+                t0 = time.perf_counter()
+                labelmap = predictor.segment(vol, mask)
+                times.append(time.perf_counter() - t0)
+                nifti.write(out_dir / f"test-segmentation-{i}.nii", labelmap, hdr)
+                log(f"volume {i}: {vol.shape} segmented in {times[-1]:.2f}s")
         if inflight is not None:
             finish(inflight)
     if times:

@@ -1,0 +1,116 @@
+"""Host-loop z-axis sliding-window inference (counterpart of
+hdenseunet_tpu/infer/sliding_window.py; reference lib/funcs.py:4-52).
+
+``InferConfig.device_resident=False`` serves through this loop instead of
+the device-resident scorer: each batch of ``window_batch`` unique windows
+goes to the device, comes back as interior softmax probabilities, and is
+accumulated on the host in float32 numpy with its multiplicity, as the
+reference averages overlapping windows after dropping each window's two
+edge slices.
+
+``window_starts`` is pure numpy, copied from the JAX package and pinned to
+the original by tests; the device-resident scorer imports it from here.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models import layers as L
+
+
+def window_starts(z: int, mini_z: int, maxi_z: int, cfg) -> list[int]:
+    """Window start offsets, replicating lib/funcs.py:19-28 exactly.
+
+    ``mini_z``/``maxi_z`` are the liver-mask z-extent; margins -5/+10 around
+    it (:19-20), stride = input_cols // 4 (:12), and starts past ``z - cols``
+    clamp to the final full window (:26-28).
+    """
+    cols = cfg.input_cols
+    stride = cfg.window_stride
+    right = int(min(z, maxi_z + cfg.liver_margin_hi) - cols)
+    left = max(0, min(mini_z - cfg.liver_margin_lo, right))
+    starts = []
+    for s in range(left, right + stride, stride):
+        starts.append(min(s, z - cols))
+    return starts
+
+
+@torch.inference_mode()
+def _window_probs(model, batch_vol, *, arch: str):
+    """(B, H, W, cols, 1) windows in the compute dtype -> (B, H, W, cols-2, C)
+    float32 interior softmax."""
+    probs = torch.softmax(model(batch_vol, arch=arch).float(), dim=-1)
+    return probs[:, :, :, 1:-1, :]  # drop window-edge z slices (funcs.py:33)
+
+
+class WindowPredictor:
+    """Window scorer for one model and config on ``device``.
+
+    Takes over ``model`` as :class:`~.device_pipeline.DeviceVolumeScorer`
+    does (``layers.prepare_serving``), so its weights must be final."""
+
+    def __init__(
+        self,
+        model,
+        cfg,
+        *,
+        arch: str = "end2end",
+        compute_dtype: str = "float32",
+        num_classes: int = 3,
+        device="cuda",
+    ):
+        self.cfg = cfg
+        self.arch = arch
+        self.num_classes = num_classes
+        self.device = torch.device(device)
+        self.dtype = getattr(torch, compute_dtype)
+        self.model = L.prepare_serving(model, self.device, self.dtype)
+
+    def _score_batch(self, wins: np.ndarray) -> np.ndarray:
+        batch = torch.from_numpy(wins).to(self.device).to(self.dtype)
+        return _window_probs(self.model, batch, arch=self.arch).cpu().numpy()
+
+    def predict_volume(self, vol: np.ndarray, mini_z: int, maxi_z: int):
+        """vol: (X, Y, Z) mean-subtracted CT -> (liver_prob, tumor_prob) (X,Y,Z).
+
+        Equivalent of predict_tumor_inwindow (lib/funcs.py:4-52) with batched
+        windows and multiplicity-preserving averaging.
+        """
+        cfg = self.cfg
+        x0, y0 = vol.shape[:2]
+        # models downsample 5x by 2: pad in-plane to a multiple of 32 (the
+        # reference instead assumes 512^2 inputs, test.py:27); padding is at
+        # the high end, repeats the edge, and is cropped back off the scores.
+        pad_x = (-x0) % 32
+        pad_y = (-y0) % 32
+        if pad_x or pad_y:
+            vol = np.pad(vol, ((0, pad_x), (0, pad_y), (0, 0)), mode="edge")
+        x, y, z = vol.shape
+        cols = cfg.input_cols
+        assert z >= cols, f"volume depth {z} < window {cols}"
+        starts = window_starts(z, mini_z, maxi_z, cfg)
+        uniq = sorted(set(starts))
+        mult = {s: starts.count(s) for s in uniq}
+
+        score = np.zeros((x, y, z, self.num_classes), np.float32)
+        count = np.zeros((z,), np.float32)
+
+        wb = max(1, cfg.window_batch)
+        for i in range(0, len(uniq), wb):
+            chunk = uniq[i : i + wb]
+            wins = np.stack(
+                [vol[:, :, s : s + cols] for s in chunk]
+            )[..., None].astype(np.float32)
+            if len(chunk) < wb:  # pad to the static batch shape
+                pad = np.repeat(wins[-1:], wb - len(chunk), axis=0)
+                wins = np.concatenate([wins, pad], axis=0)
+            probs = self._score_batch(wins)
+            for j, s in enumerate(chunk):
+                m = mult[s]
+                score[:, :, s + 1 : s + cols - 1, :] += m * probs[j]
+                count[s + 1 : s + cols - 1] += m
+
+        score /= count[None, None, :, None] + 1e-4  # funcs.py:48
+        score = score[:x0, :y0]
+        return score[..., self.num_classes - 2], score[..., self.num_classes - 1]

@@ -47,12 +47,17 @@ class Ctx:
     instead of applying the update twice; the trainer copies the dict into
     the buffers after the optimizer step. Dropout draws from ``generator``,
     a generator on ``device`` seeded from ``seed`` when first used.
+    ``remat_policy`` is TrainConfig's: 'full' or 'convs' (:func:`maybe_remat`).
     """
 
-    def __init__(self, seed: int, *, device, remat: bool = False, new_stats=None):
+    def __init__(
+        self, seed: int, *, device, remat: bool = False, remat_policy: str = "full",
+        new_stats=None,
+    ):
         self.seed = int(seed)
         self.device = torch.device(device)
         self.remat = remat
+        self.remat_policy = remat_policy
         self.new_stats = {} if new_stats is None else new_stats
         self._generator = None
         self._children = 0
@@ -81,6 +86,11 @@ def maybe_remat(ctx: Ctx | None, fn, x):
     during the backward, where it draws the same dropout masks and assigns
     the same BatchNorm statistics again. Its parameters are not recomputed.
     Remat on or off, the masks are the same.
+
+    ``ctx.remat_policy == 'convs'`` makes the checkpoint selective
+    (core/module.py:222-229): every convolution's output is saved, and only
+    the BN/Scale/ReLU/dropout chain between them reruns in the backward, K1
+    included; the rerun takes the saved conv outputs instead of convolving.
     """
     if ctx is None:
         return fn(None, x)
@@ -91,7 +101,22 @@ def maybe_remat(ctx: Ctx | None, fn, x):
 
     if not ctx.remat or not torch.is_grad_enabled():
         return run(x)
-    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    kwargs = {}
+    if ctx.remat_policy == "convs":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        kwargs["context_fn"] = lambda: create_selective_checkpoint_contexts(_save_conv_outputs)
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False, **kwargs)
+
+
+def _save_conv_outputs(_, op, *args, **kwargs):
+    """The 'convs' policy: save each convolution's output (the JAX package
+    tags it 'conv_out', layers.py:124), recompute every other op."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op is torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def channels_last(x):
@@ -266,6 +291,18 @@ def freeze_bn_scale(model: nn.Module):
                 if isinstance(layer, Scale):
                     layer.freeze(table[name.removesuffix("_scale") + "_bn"])
     return model
+
+
+def prepare_serving(model: nn.Module, device, dtype) -> nn.Module:
+    """``model`` readied for scoring, in place: moved to ``device`` in eval
+    mode, conv weights cast to ``dtype`` in channels-last memory (BN and
+    Scale stay float32, as in the JAX package), every frozen BN∘Scale pair
+    folded once (:func:`freeze_bn_scale`), so its weights must be final."""
+    model = model.to(device).eval()
+    for m in model.modules():
+        if isinstance(m, Conv):
+            m.to(dtype=dtype, memory_format=_FORMATS[m.ndim + 2])
+    return freeze_bn_scale(model)
 
 
 def unfreeze_bn_scale(model: nn.Module):

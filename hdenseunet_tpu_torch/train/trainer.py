@@ -67,8 +67,6 @@ def create_train_state(cfg: Config, arch: str | None = None, *, device="cuda", s
     """Model from the port's seeded initializer, the stage's optimizer,
     step 0 and the dropout generator, on ``device``."""
     arch = arch or cfg.train.arch
-    if cfg.train.remat_policy != "full":
-        raise NotImplementedError("remat_policy='convs' is not ported yet")
     if arch != "2d" and cfg.model.layout3d != "hwdc":
         raise NotImplementedError("the d-major 3D layout is a TPU lever and is not ported")
     seed = cfg.train.seed if seed is None else seed
@@ -116,7 +114,7 @@ def train_step(state: TrainState, batch: dict, cfg: Config) -> torch.Tensor:
     dev = state.device
     batch = to_device(batch, dev) if isinstance(batch["image"], np.ndarray) else batch
     seed = int(torch.randint(0, 2**62, (1,), generator=state.generator))
-    ctx = L.Ctx(seed, device=dev, remat=cfg.train.remat)
+    ctx = L.Ctx(seed, device=dev, remat=cfg.train.remat, remat_policy=cfg.train.remat_policy)
     state.optimizer.zero_grad(set_to_none=True)
     loss = forward_loss(
         state.model, batch, ctx, arch=state.arch, cfg=cfg, weights=state.loss_weights

@@ -19,7 +19,7 @@ from hdenseunet_tpu.models import hybrid as JH
 from hdenseunet_tpu.weights import convert as j_convert
 from hdenseunet_tpu_torch import cli
 from hdenseunet_tpu_torch.data import nifti
-from hdenseunet_tpu_torch.infer import device_pipeline, predictor
+from hdenseunet_tpu_torch.infer import device_pipeline, predictor, sliding_window
 from hdenseunet_tpu_torch.train import checkpoint, trainer
 from hdenseunet_tpu_torch.weights import convert as t_convert
 
@@ -97,8 +97,10 @@ def test_staged_chain_on_the_cpu(tmp_path, capsys):
     cli.main([*test, "--weights", str(ck2d), "--restore", "best", "--save-path", str(tmp_path / "res2")])
     assert _counts(r"by-name, cross-stage\): (\d+) layers loaded, (\d+) skipped",
                    capsys.readouterr().out) == (loaded, 0)
-    with pytest.raises(NotImplementedError):
-        cli.main([*test, "--tiled", "64", "--save-path", str(tmp_path / "res3")])
+    # the tiled scorer serves the same checkpoint (test_torch_tiled.py holds it to JAX's)
+    cli.main([*test, "--weights", str(cke), "--tiled", "64", "--save-path", str(tmp_path / "res3")])
+    tiled, _ = nifti.read(tmp_path / "res3" / "test-segmentation-0.nii")
+    assert tiled.shape == vol.shape and set(np.unique(tiled)) <= {0, 1, 2}
 
     evaluate = ["evaluate", "--pred", str(tmp_path / "res"), "--truth", str(dirs["truth"]),
                 "--num-volumes", "1", "--global-dice", "--all-metrics"]
@@ -155,6 +157,7 @@ def test_test_refuses_a_merge_that_loads_fewer_layers_than_it_skips(tmp_path):
 @pytest.mark.parametrize("fn", [
     trainer.train, trainer.create_train_state, predictor.VolumePredictor,
     predictor.predict_directory, device_pipeline.DeviceVolumeScorer,
+    predictor.TiledPredictor, device_pipeline.TiledVolumeScorer, sliding_window.WindowPredictor,
 ])
 def test_entry_points_run_on_the_card_unless_asked(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -165,3 +168,4 @@ def test_cli_runs_on_the_card_unless_asked():
     assert parser.parse_args(["train"]).device == "cuda"
     assert parser.parse_args(["test", "--data", "d", "--livermask", "m"]).device == "cuda"
     assert parser.parse_args(["train", "--device", "cpu"]).device == "cpu"
+    assert parser.parse_args(["export-weights", "ck", "w.h5"]).device == "cuda"

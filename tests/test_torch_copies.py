@@ -1,11 +1,14 @@
 """The port's own copies of the JAX package's framework-free files, held to
 their originals: the typed config, the NIfTI reader/writer, the host
-postprocess with its native core, the offline preparation, the metrics and
-the sampler's native core. Also: no import statement of the port,
-nor of the scripts that drive it on the card, names JAX or the JAX package.
+postprocess with its native core, the offline preparation, the metrics,
+the sampler's native core, the Keras-HDF5 converter's functions and the
+scorers' window grids. Also: no import statement of the port, nor of the
+scripts that drive it on the card, names JAX or the JAX package.
 """
 import ast
 import dataclasses
+import inspect
+import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -15,11 +18,15 @@ from scipy import ndimage
 from hdenseunet_tpu import native as j_native
 from hdenseunet_tpu.core import config as j_config
 from hdenseunet_tpu.data import nifti as j_nifti, preprocess as j_pre
-from hdenseunet_tpu.infer import metrics as j_metrics, postprocess as j_post
+from hdenseunet_tpu.infer import device_pipeline as j_dp, metrics as j_metrics, postprocess as j_post
+from hdenseunet_tpu.infer import sliding_window as j_sw
+from hdenseunet_tpu.weights import convert as j_convert
 from hdenseunet_tpu_torch import native as t_native
 from hdenseunet_tpu_torch.core import config as t_config
 from hdenseunet_tpu_torch.data import nifti as t_nifti, preprocess as t_pre
-from hdenseunet_tpu_torch.infer import metrics as t_metrics, postprocess as t_post
+from hdenseunet_tpu_torch.infer import device_pipeline as t_dp, metrics as t_metrics, postprocess as t_post
+from hdenseunet_tpu_torch.infer import sliding_window as t_sw
+from hdenseunet_tpu_torch.weights import convert as t_convert
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIG_CLASSES = ["DataConfig", "ModelConfig", "TrainConfig", "InferConfig", "Config"]
@@ -193,13 +200,53 @@ def test_nifti_reads_back_identically_across_packages(tmp_path, writer, dtype, s
     assert np.array_equal(w.read(again)[0], vol)
 
 
+def _code(fn) -> str:
+    """fn's statements without its docstring and without the h5py guard
+    (the JAX module imports h5py once at the top, the port in the function),
+    as an AST dump."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn))).body[0]
+    body = [
+        st for i, st in enumerate(tree.body)
+        if not (i == 0 and isinstance(st, ast.Expr) and isinstance(st.value, ast.Constant))
+        and "h5py" not in ast.unparse(st).split("with ")[0]
+    ]
+    return ast.dump(ast.Module(body=body, type_ignores=[]))
+
+
+@pytest.mark.parametrize("module,name", [
+    ("convert", "_decode"), ("convert", "_parse_leaf"), ("convert", "_read_layer_group"),
+    ("convert", "load_keras_hdf5"), ("convert", "convert_checkpoint"), ("convert", "save_keras_hdf5"),
+    ("device_pipeline", "tile_origins"), ("sliding_window", "window_starts"),
+])
+def test_copied_function_equals_the_original(module, name):
+    port, orig = {"convert": (t_convert, j_convert), "device_pipeline": (t_dp, j_dp),
+                  "sliding_window": (t_sw, j_sw)}[module]
+    assert _code(getattr(port, name)) == _code(getattr(orig, name))
+
+
+def test_converter_tables_and_leaf_parsing_equal_the_originals():
+    for name in ("SUBMODEL_2D", "SUBMODEL_3D", "MULGPU_GROUP", "_LEAF_ALIASES", "_STATE_LEAVES"):
+        assert getattr(t_convert, name) == getattr(j_convert, name), name
+    for wname in ("conv1/kernel:0", "conv1_scale_gamma:0", "bn/running_std:0", "a/b/beta", "x_W:0", "k"):
+        try:
+            want = j_convert._parse_leaf(wname)
+        except ValueError as e:
+            with pytest.raises(ValueError, match=str(e).split(" in ")[0]):
+                t_convert._parse_leaf(wname)
+            continue
+        assert t_convert._parse_leaf(wname) == want
+    assert t_convert._decode(b"conv1") == j_convert._decode(b"conv1") == "conv1"
+    assert t_dp.tile_origins(512, 256, 170) == j_dp.tile_origins(512, 256, 170) == [0, 170, 256]
+
+
 def _forbidden(name: str) -> bool:
     return any(name == m or name.startswith(m + ".") for m in ("jax", "hdenseunet_tpu"))
 
 
 @pytest.mark.parametrize(
     "script",
-    ["chip_smoke.py", "profile_serving.py", "profile_train.py", "profile_feed.py", "hdenseunet_tpu_torch"],
+    ["chip_smoke.py", "profile_serving.py", "profile_train.py", "profile_feed.py", "compare_train_steps.py",
+     "hdenseunet_tpu_torch"],
 )
 def test_no_import_statement_names_jax(script):
     """Every import statement, nested ones included, of the port's files and

@@ -249,11 +249,16 @@ def test_predict_directory_matches_jax_segment(tiny, segment_case, tmp_path):
 
 @pytest.mark.parametrize("field,value", [("device_resident", False)])
 def test_unported_serving_options_raise(field, value):
+    """No serving option raises any more: the host loop (device_resident
+    False) has been ported since, and test_torch_window_predictor.py tests
+    what it does."""
+    from hdenseunet_tpu_torch.infer.sliding_window import WindowPredictor
+
     cfg = Config()
     cfg.model.preset = "tiny"
     cfg.infer = dataclasses.replace(cfg.infer, **{field: value})
-    with pytest.raises(NotImplementedError):
-        VolumePredictor(HDenseUNet(preset="tiny", device="meta"), cfg, device="meta")
+    vp = VolumePredictor(HDenseUNet(preset="tiny", device="meta"), cfg, device="meta")
+    assert isinstance(vp.windows, WindowPredictor)
 
 
 # --------------------------------------------------------------------------

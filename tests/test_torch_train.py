@@ -424,11 +424,16 @@ def test_nan_batch_raises(tmp_path):
      ("checkpoint_dir", "ck"), ("resume", True), ("init_weights", {})],
 )
 def test_unported_training_options_raise(tmp_path, field, value):
-    """The TPU levers raise. Checkpoints, resume and the warm start have
-    been ported since, and the loop now takes them (test_torch_checkpoint.py
-    and test_torch_cli.py test what they do)."""
+    """The TPU levers raise. Checkpoints, resume, the warm start and
+    remat_policy='convs' have been ported since, and the loop now takes them
+    (test_torch_checkpoint.py, test_torch_cli.py and test_torch_remat.py
+    test what they do)."""
     pcfg = _loop_cfg(tmp_path)
     kwargs = {}
+    if field == "remat_policy":
+        pcfg.train.remat_policy = value
+        assert T.train(pcfg, iter(()), max_steps=1, device="cpu", log_fn=lambda *a: None).step == 0
+        return
     if field in ("checkpoint_dir", "resume", "init_weights"):
         kwargs[field] = str(tmp_path / value) if field == "checkpoint_dir" else value
         logged = []
