@@ -34,6 +34,14 @@ failure exits non-zero):
      windows (207 in 26 batches of 8, reckoned from tile_origins): every
      voxel covered, probabilities finite in [0, 1], device scoring s,
      s/volume, peak memory;
+   - mfu: device scoring's MFU on the first volume: ``estimate_flops``
+     (TFLOP), ``compute_seconds(detail=True)`` and their ratio against
+     ``peak_flops_per_chip()`` (the card's bf16 data-sheet peak), beside the
+     serve path's synchronised device scoring of the same run;
+   - trace: one ``VolumePredictor.segment`` inside ``utils.profiling.trace``
+     (torch.profiler): the trace names K1's kernel and the predictor's
+     scoring, fetch and postprocess scopes; the ten device ops with the
+     most time;
    - K4 (cc_label 26 and 6, largest_component, fill_holes, compose_prep,
      compose_finish) against its plain versions on the card and
      native/postprocess.cpp at 512x512x112 (random masks at four densities,
@@ -41,7 +49,8 @@ failure exits non-zero):
      thresholded labelmask, with times, bounds and kernels per call;
 5. the training path: ``train`` for 4 end2end steps at full width (global
    batch 8 of 224x224x8 sub-volumes, bfloat16, remat), then 4 steps of the
-   2D stage at bench.py's configuration (batch 8 of 224x224 slabs), then
+   2D stage at bench.py's configuration (batch 8 of 224x224 slabs; each
+   run's StepTimer.stats over steps 2-4), then
    the end2end steps again under ``remat_policy='convs'`` (launches per
    step; ms/step, peak memory and losses beside the 'full' run's and a
    second 'full' run's; one step of each policy from the same weights and
@@ -68,12 +77,17 @@ failure exits non-zero):
    host-loop window predictor and the uint8-wire labelmask, and one tiny
    end2end train step, in float32 on the CPU (plain versions) and on the
    card (kernels), TF32 off;
+8. parity: ``python -m hdenseunet_tpu_torch.weights.parity`` on seeded
+   full-preset weights written as an .npz: the 2D model at 224x224 and the
+   end2end hybrid at 224x224x8 dumped in float32 on the card and on the
+   CPU, ``compare`` exiting 0 at the tool's defaults;
 then a JSON line describing the kernels, and the last line
 {"ok": true, "device": {...}}.
 
-Each path of phases 4-6 (serve, serve_dpp, serve_dpp_dense, serve_per_window,
-serve_shared_2d, serve_uint8, serve_host_loop, serve_tiled, train_*,
-train_end2end_convs, cli_*, cli_test_tiled) runs with every launch counter
+Each path of phases 4-6 and 8 (serve, serve_dpp, serve_dpp_dense,
+serve_per_window, serve_shared_2d, serve_uint8, serve_host_loop, serve_tiled,
+mfu, trace, train_*, train_end2end_convs, cli_*, cli_test_tiled, parity)
+runs with every launch counter
 set to 0 just before it and read just after, and fails if a kernel of that
 path did not launch.
 """
@@ -138,6 +152,9 @@ TILE = 256  # the tiled scorer's in-plane window (serve_tiled, cli_test_tiled)
 # (several bfloat16 ulps of a logit near 1) and 1e-4 of the voxels, which
 # thresholds and the largest-component rule can flip
 HOST_LOOP_BOUND = dict(prob=2.0**-5, voxels=1e-4)
+SCOPES = ("scoring", "fetch", "postprocess")  # VolumePredictor's annotate scopes
+# cuDNN's and CUTLASS's convolution kernels (implicit GEMM and GEMM forms)
+CONV_KERNEL = re.compile(r"xmma|cutlass|cudnn|conv(?!ert)|gemm", re.IGNORECASE)
 
 
 def card_line() -> str:
@@ -612,6 +629,15 @@ def serve_path(card: str) -> dict:
         seconds.append(time.perf_counter() - t0)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    scoring = []  # device scoring alone per volume, synchronised (PERF.md §2)
+    for vol, ext in cases:
+        _, z_lo, z_hi = postprocess.liver_mask_extent(ext)
+        img = np.asarray(vol, np.float32) - cfg.infer.mean
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predictor.windows.labelmask_async(img, z_lo, z_hi)
+        torch.cuda.synchronize()
+        scoring.append(time.perf_counter() - t0)
 
     assert launches["affine_relu"] >= bsr_per_forward * runs, (launches, bsr_per_forward, runs)
     for (vol, _), lab in zip(cases, labelmaps):
@@ -627,12 +653,148 @@ def serve_path(card: str) -> dict:
     assert all(launches[name] == 0 for name in K4_NAMES), launches
     print(
         f"serve path: 2 volumes {VOLUME_SHAPE} full preset bf16, {runs} window runs, "
-        f"s/volume {[round(s, 3) for s in seconds]}, peak {peak / 2**30:.2f} GiB, "
+        f"s/volume {[round(s, 3) for s in seconds]}, device scoring s/volume {[round(s, 4) for s in scoring]}, "
+        f"peak {peak / 2**30:.2f} GiB, "
         f"launches {launches} (K1 >= {bsr_per_forward} x {runs}), "
         f"label counts {counts}, host postprocess {host_pp} [{card}]"
     )
     return dict(launches=launches, model=model, predictor=predictor, cases=cases, labelmaps=labelmaps,
-                seconds=seconds, peak=peak, k1_floor=bsr_per_forward * runs, bsr_per_forward=bsr_per_forward)
+                seconds=seconds, scoring=scoring, peak=peak, runs=runs // len(cases),
+                k1_floor=bsr_per_forward * runs, bsr_per_forward=bsr_per_forward)
+
+
+def mfu_path(card: str, serve: dict) -> dict:
+    """Device scoring's MFU on phase 4's first volume with its predictor
+    (shipped InferConfig, bfloat16): ``estimate_flops`` over
+    ``compute_seconds`` (12 scorings: both k warmed, two reps of k=1 and of
+    k=3) over the card's bf16 peak, beside phase 4's synchronised device
+    scoring. Returns the launch counts."""
+    from hdenseunet_tpu_torch.infer import postprocess
+    from hdenseunet_tpu_torch.utils.flops import peak_flops_per_chip
+
+    sc, icfg = serve["predictor"].windows, serve["predictor"].cfg.infer
+    vol, ext = serve["cases"][0]
+    _, z_lo, z_hi = postprocess.liver_mask_extent(ext)
+    flops = sc.estimate_flops(vol.shape, z_lo, z_hi)
+    peak = peak_flops_per_chip()
+    reset_counts()
+    d = sc.compute_seconds(np.asarray(vol, np.float32) - icfg.mean, z_lo, z_hi, detail=True)
+    launches = read_counts()
+    # both phase 4 volumes share one plan, so each scoring runs half its K1 launches
+    assert launches == only(affine_relu=12 * serve["launches"]["affine_relu"] // 2), launches
+    mfu = flops / d["seconds"] / peak
+    assert 0.0 < mfu < 1.0, mfu
+    print(
+        f"mfu: serve volume {vol.shape} ({serve['runs']} window runs), estimate_flops "
+        f"{flops / 1e12:.4f} TFLOP; compute_seconds {d['seconds']:.4f} s (slopes "
+        f"{[round(v, 4) for v in d['slopes']]}, t(k=1) {[round(v, 4) for v in d['t_small']]}, t(k=3) "
+        f"{[round(v, 4) for v in d['t_big']]}); {flops / d['seconds'] / 1e12:.1f} TFLOP/s, MFU "
+        f"{100 * mfu:.2f} % of the {peak / 1e12:.1f} TFLOP/s bf16 peak; phase 4's device scoring "
+        f"{[round(s, 4) for s in serve['scoring']]} s/volume, MFU "
+        f"{[round(100 * flops / s / peak, 2) for s in serve['scoring']]} % [{card}]"
+    )
+    return launches
+
+
+def trace_path(card: str, serve: dict) -> dict:
+    """One ``VolumePredictor.segment`` of phase 4's first volume inside
+    ``utils.profiling.trace``: its labelmap as phase 4's, a trace file that
+    names K1's kernel and the predictor's scoring, fetch and postprocess
+    scopes; the device time of the convolution kernels (their rate of
+    estimate_flops), of K1 and of the rest, and the ten device ops with the
+    most time. Returns the launch counts."""
+    from hdenseunet_tpu_torch.infer import postprocess
+    from hdenseunet_tpu_torch.utils.flops import peak_flops_per_chip
+    from hdenseunet_tpu_torch.utils.profiling import trace
+
+    vol, ext = serve["cases"][0]
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_", dir=BUILD) as logdir:
+        reset_counts()
+        t0 = time.perf_counter()
+        with trace(logdir) as prof:
+            lab = serve["predictor"].segment(vol, ext)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        files = list(Path(logdir).glob("*.pt.trace.json"))
+        assert len(files) == 1, files
+        text = files[0].read_text()
+    assert np.array_equal(lab, serve["labelmaps"][0]), "the traced segment differs from phase 4's"
+    assert launches == only(affine_relu=serve["launches"]["affine_relu"] // 2), launches
+    missing = [n for n in [f'"{scope}"' for scope in SCOPES] + ["affine_relu"] if n not in text]
+    assert not missing, f"the trace names none of {missing}"
+    by_op, spans = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            # a scope's span on the device timeline is no op of its own
+            table = spans if e.name in SCOPES or getattr(e, "is_user_annotation", False) else by_op
+            n, ms = table.get(e.name, (0, 0.0))
+            table[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    busy = sum(ms for _, ms in by_op.values())
+    assert busy > 0, "the profiler saw no device time"
+    conv_ms = sum(ms for name, (_, ms) in by_op.items() if CONV_KERNEL.search(name))
+    k1_ms = sum(ms for name, (_, ms) in by_op.items() if "affine_relu" in name)
+    _, z_lo, z_hi = postprocess.liver_mask_extent(ext)
+    conv_rate = serve["predictor"].windows.estimate_flops(vol.shape, z_lo, z_hi) / (conv_ms / 1e3)
+    print(f"trace: one segment of {vol.shape}, traced wall {wall:.3f} s against phase 4's "
+          f"{[round(s, 3) for s in serve['seconds']]} untraced, {len(text) / 2**20:.1f} MiB of trace, "
+          f"{sum(n for n, _ in by_op.values())} device events, device busy {busy:.1f} ms; scopes on the "
+          f"device timeline {dict((k, round(ms, 2)) for k, (_, ms) in spans.items())} ms; convolution "
+          f"kernels {conv_ms:.1f} ms ({100 * conv_ms / busy:.1f} %) at {conv_rate / 1e12:.1f} TFLOP/s of "
+          f"estimate_flops, {100 * conv_rate / peak_flops_per_chip():.2f} % of the bf16 peak; K1 "
+          f"{k1_ms:.1f} ms ({100 * k1_ms / busy:.1f} %), the rest "
+          f"{busy - conv_ms - k1_ms:.1f} ms; the ten device ops with the most time [{card}]:")
+    for name, (n, ms) in sorted(by_op.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"  {ms:9.2f} ms {100 * ms / busy:5.1f} % x{n:<5d} {name[:110]}")
+    return launches
+
+
+def exit_code(main, argv: list[str]) -> int:
+    """The code a command-line ``main`` exits with."""
+    try:
+        main(argv)
+    except SystemExit as e:
+        return e.code
+    raise AssertionError(f"{argv[0]} returned without an exit code")
+
+
+def parity_path(card: str, bsr_per_forward: int) -> dict:
+    """``python -m hdenseunet_tpu_torch.weights.parity`` at full width: the
+    2D model at 224x224 and the end2end hybrid at 224x224x8, from seeded
+    weights written as an .npz, dumped in float32 on the card and on the
+    CPU; ``compare`` must exit 0 at the tool's defaults. Returns the launch
+    counts of the dumps."""
+    from hdenseunet_tpu_torch.core import params as P
+    from hdenseunet_tpu_torch.core.initializers import init_model
+    from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
+    from hdenseunet_tpu_torch.weights import parity
+
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parity_", dir=BUILD) as tmp:
+        root = Path(tmp)
+        params, state = P.to_numpy(init_model(HDenseUNet(preset="full"), SEED))
+        np.savez(root / "weights.npz", **{f"{layer}/{leaf}": v for tree in (params, state)
+                                          for layer, leaves in tree.items() for leaf, v in leaves.items()})
+        del params, state
+        reset_counts()
+        for model in ("2d", "hybrid"):
+            dumps, seconds = [], []
+            for device in ("cuda", "cpu"):
+                out = root / f"{model}_{device}" / "acts.npz"
+                out.parent.mkdir()
+                t0 = time.perf_counter()
+                parity.main(["dump", "--weights", str(root / "weights.npz"), "--out", str(out),
+                             "--model", model, "--input-size", "224", "--input-cols", "8", "--device", device])
+                seconds.append(time.perf_counter() - t0)
+                dumps.append(str(out))
+            code = exit_code(parity.main, ["compare", *dumps])
+            assert code == 0, f"parity compare of the {model} dumps, card against CPU, exited {code}"
+            print(f"parity: {model} at 224x224{'x8' if model == 'hybrid' else ''} float32, card against CPU "
+                  f"at the tool's defaults (rtol = atol = 1e-3): exit 0; dump s card {seconds[0]:.2f}, "
+                  f"CPU {seconds[1]:.2f} [{card}]")
+        launches = read_counts()
+    assert launches == only(affine_relu=BSR_2D + bsr_per_forward), launches
+    return launches
 
 
 def ellipsoid_case(shape):
@@ -713,7 +875,7 @@ def check_k4(card: str, serve: dict) -> dict:
     ext_once, z_lo, z_hi = postprocess.liver_mask_extent(ext_raw)
     plan = sc.plan(vol.shape, z_lo, z_hi)
     with torch.inference_mode():
-        real = pack_labels(sc._score(vol - icfg.mean, plan), icfg.thres_liver, icfg.thres_tumor)
+        real = pack_labels(sc._score(sc._wire(vol - icfg.mean, plan), plan), icfg.thres_liver, icfg.thres_tumor)
     real_bits = sc._ext_bits(ext_once, plan, vol.shape)
     compose_cases = {
         "ellipsoid": (*compose_inputs(liver, tumor, ext, K4_SHAPE[2]), K4_SHAPE[2]),
@@ -982,6 +1144,7 @@ def train_path(card: str, arch: str, policy: str = "full") -> dict:
     from hdenseunet_tpu_torch.core.config import Config
     from hdenseunet_tpu_torch.data.sampler import synthetic_batches
     from hdenseunet_tpu_torch.train.trainer import train
+    from hdenseunet_tpu_torch.utils.profiling import StepTimer
 
     cfg = Config()
     cfg.model.compute_dtype = "bfloat16"
@@ -997,11 +1160,13 @@ def train_path(card: str, arch: str, policy: str = "full") -> dict:
         input_cols=cfg.model.input_cols, seed=SEED,
     )
     batches = [next(gen) for _ in range(TRAIN_STEPS)]
-    asked = []
+    asked, timer = [], StepTimer()
 
     def timed():
-        for batch in batches:
+        for i, batch in enumerate(batches):
             asked.append(time.perf_counter())
+            if i:  # steps 2-4, as the ms/step below
+                timer.tick()
             yield batch
 
     history = Path(cfg.train.save_path) / "history" / "lossbatch.txt"
@@ -1013,6 +1178,7 @@ def train_path(card: str, arch: str, policy: str = "full") -> dict:
         state = train(cfg, timed(), max_steps=TRAIN_STEPS, device="cuda", log_fn=lambda *a: None)
     torch.cuda.synchronize()
     end = time.perf_counter()
+    timer.tick()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in history.read_text().split()]
@@ -1032,7 +1198,8 @@ def train_path(card: str, arch: str, policy: str = "full") -> dict:
         f"{shape}: first step {(asked[1] - asked[0]) * 1e3:.1f} ms, {ms:.1f} ms/step over steps "
         f"2-{steps}, {slices / ms * 1e3:.1f} slices/s, peak {peak / 2**30:.2f} GiB, losses "
         f"{[round(v, 5) for v in losses]}, launches {launches} "
-        f"(K1 forward {launches['affine_relu'] // steps}/step) [{card}]"
+        f"(K1 forward {launches['affine_relu'] // steps}/step); StepTimer.stats over steps 2-{steps} "
+        f"{ {k: round(float(v), 3) for k, v in timer.stats(samples_per_step=slices).items()} } [{card}]"
     )
     weights = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
     return dict(launches=launches, calls=calls, ms=ms, losses=losses, peak=peak, weights=weights)
@@ -1436,6 +1603,8 @@ def main() -> None:
     paths.update(serve_modes(card, serve))
     paths["serve_host_loop"] = serve_host_loop(card, serve)
     paths["serve_tiled"] = serve_tiled(card, serve)
+    paths["mfu"] = mfu_path(card, serve)
+    paths["trace"] = trace_path(card, serve)
     k4 = check_k4(card, serve)
     bsr_per_forward = serve["bsr_per_forward"]
     del serve
@@ -1456,6 +1625,7 @@ def main() -> None:
                        step_bound_ms=steps["train_end2end"]["bound_ms"])
     model_check(card)
     train_check(card)
+    paths["parity"] = parity_path(card, bsr_per_forward)
     kernels = []
     for name, source, replaces, numbers in (
         ("affine_relu", "fused_affine.cu", "ops/fused_affine.py:48", k1),

@@ -2,8 +2,9 @@
 
 The JAX package beside it is the reference: every module here mirrors the
 name of its JAX counterpart and is tested against it on the same weights and
-inputs. Ported so far: the serving path, the training path and the staged
-training workflow behind the command line (``python -m hdenseunet_tpu_torch``).
+inputs. Ported so far: the serving path, the training path, the staged
+training workflow behind the command line (``python -m hdenseunet_tpu_torch``)
+and the measurement and audit tools.
 
 cli      synth-data, preprocess, train, test, evaluate
 core     typed config, seeded initializers, the parameter bridge to and
@@ -19,8 +20,11 @@ train    losses, SGD-Nesterov with staged freezing, the trainer, checkpoints
 data     NIfTI IO, offline preparation, the guided crop sampler, the
          prefetch pipeline, synthetic training batches
 native   the sampler's and the host postprocess's C++ cores (g++, ctypes)
-weights  warm-start weights by layer name
-utils    the NaN guard of the training loop
+weights  warm-start weights by layer name, the Keras-HDF5 converter, the
+         activation-parity dump and compare (``weights.parity``)
+utils    the NaN guard of the training loop, conv FLOP accounting with
+         the H100's bf16 peak (``utils.flops``), torch.profiler tracing
+         and step timing (``utils.profiling``)
 
 The config, NIfTI IO, offline preparation, metrics, host postprocess and
 both native cores are the port's own copies of the JAX package's

@@ -27,8 +27,14 @@ The window-grid helpers are pure numpy, copied from the JAX package
 tile_origins; ``window_starts`` lives in ``sliding_window.py``) and pinned
 to the originals by tests.
 
-Not ported yet: the timing helpers (compute_timer, compute_seconds,
-estimate_flops) and the ``mesh`` argument.
+The measurement helpers: ``estimate_flops`` counts the conv FLOPs a
+volume's scoring runs (``utils/flops.py``, the real modules on the meta
+device); ``compute_timer`` and ``compute_seconds`` time the served scoring
+program k times back to back on a wire already on the device, and take the
+slope over k, so MFU is ``estimate_flops / compute_seconds /
+utils.flops.peak_flops_per_chip()``.
+
+Not ported yet: the ``mesh`` argument.
 """
 from __future__ import annotations
 
@@ -236,6 +242,73 @@ class DeviceVolumeScorer:
             wb=wb, dedup=dedup, starts=starts, weights=weights,
         )
 
+    def estimate_flops(self, vol_shape, mini_z: int, maxi_z: int) -> float:
+        """Analytic conv FLOPs that scoring this volume runs
+        (device_pipeline.py:329-359): every batch of the plan with a
+        nonzero weight, its weight-0 padding windows included (they run).
+        Batches whose weights are all zero, the plan's bucket padding, are
+        skipped by :meth:`_score` and not counted; the JAX program runs and
+        counts them."""
+        from ..utils.flops import hybrid_window_batch_flops
+
+        p = self.plan(vol_shape, mini_z, maxi_z)
+        runs, wb, cols = int(p["weights"].any(axis=1).sum()), p["wb"], self.cfg.input_cols
+        count = lambda **kw: hybrid_window_batch_flops(
+            x=p["xp"], y=p["yp"], cols=cols, preset=self.model.preset,
+            num_classes=self.num_classes, arch=self.arch, **kw,
+        )
+        if self.shared_2d:
+            # phase A: one 2D pass per buffer slice; phase B: 3D + head per window
+            f2d_all = count(wb=1, n_stacks_2d=p["zp"]) - count(wb=1, n_stacks_2d=0)
+            return runs * count(wb=wb, n_stacks_2d=0) + f2d_all
+        n_stacks = (wb - 1) * self.cfg.window_stride + cols - 2 + 2 * wb if p["dedup"] else wb * cols
+        return runs * count(wb=wb, n_stacks_2d=n_stacks)
+
+    def compute_timer(self, vol: np.ndarray, mini_z: int, maxi_z: int):
+        """``timed(k) -> wall seconds`` of k runs of the served scoring
+        program (:meth:`_score`, then :func:`summarize`) back to back on one
+        wire already on the device, ending on the fetched digest of the last
+        run, which ``timed.digest`` keeps. The device is synchronised before
+        the clock starts. The first call at a shape carries cuDNN's
+        first-call cost: warm every k that will be timed
+        (device_pipeline.py:449-487)."""
+        import time
+
+        p = self.plan(vol.shape, mini_z, maxi_z)
+        vol_d = self._wire(vol, p)
+
+        def timed(k: int) -> float:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            for _ in range(k):
+                digest = summarize(self._score(vol_d, p))
+            timed.digest = digest.cpu().numpy()  # the fetch waits for the device
+            seconds = time.perf_counter() - t0
+            assert np.isfinite(timed.digest).all(), timed.digest
+            return seconds
+
+        return timed
+
+    def compute_seconds(
+        self, vol: np.ndarray, mini_z: int, maxi_z: int, *,
+        k_small: int = 1, k_big: int = 3, reps: int = 2, detail: bool = False,
+    ):
+        """Device seconds of scoring one volume: the slope
+        (t(k_big) - t(k_small)) / (k_big - k_small) of :meth:`compute_timer`,
+        each endpoint the minimum over ``reps`` calls; the per-call cost
+        (the sync, the digest fetch, the host's queueing ahead of the card)
+        appears in both endpoints and cancels (device_pipeline.py:489-528).
+        Both k are warmed first. ``detail`` returns the endpoints too."""
+        timed = self.compute_timer(vol, mini_z, maxi_z)
+        timed(k_small), timed(k_big)  # warm both
+        t_small = sorted(timed(k_small) for _ in range(reps))
+        t_big = sorted(timed(k_big) for _ in range(reps))
+        slopes = [max((tb - ts) / (k_big - k_small), 1e-9) for ts, tb in zip(t_small, t_big)]
+        if detail:
+            return {"seconds": slopes[0], "slopes": slopes, "t_small": t_small, "t_big": t_big}
+        return slopes[0]
+
     def _wire(self, vol: np.ndarray, p: dict):
         """The z-crop of the volume, zero-padded to the compute shape on the
         device in the compute dtype. bf16 is exact for the clipped,
@@ -268,8 +341,9 @@ class DeviceVolumeScorer:
         return vol_w.permute(2, 0, 1, 3).unsqueeze(-1)
 
     @torch.inference_mode()
-    def _score(self, vol: np.ndarray, p: dict):
-        """Averaged probabilities (xp, yp, zp, C) float32 on the device.
+    def _score(self, vol_d, p: dict):
+        """Averaged probabilities (xp, yp, zp, C) float32 on the device, from
+        the plan ``p``'s wire ``vol_d`` already on the device (:meth:`_wire`).
 
         Batches whose weights are all zero (the plan's bucket padding) are
         skipped, and so are weight-0 windows in the accumulate: both add
@@ -278,7 +352,6 @@ class DeviceVolumeScorer:
         clamp them: padding windows reach past the crop and must read finite
         values.
         """
-        vol_d = self._wire(vol, p)
         x, y, zp = vol_d.shape
         score = torch.zeros((x, y, zp, self.num_classes), dtype=torch.float32, device=self.device)
         count = torch.zeros((zp,), dtype=torch.float32, device=self.device)
@@ -363,7 +436,7 @@ class DeviceVolumeScorer:
             raise ValueError(f"unknown output {output!r}")
         x0, y0, z_full = vol.shape
         p = self.plan(vol.shape, mini_z, maxi_z)
-        probs = self._score(vol, p)
+        probs = self._score(self._wire(vol, p), p)
         if output == "digest":
             return summarize(probs)
         if output == "packed":
@@ -417,7 +490,7 @@ class DeviceVolumeScorer:
         ext_bits = self._ext_bits(ext_mask, p, vol.shape) if dpp else None
         with torch.inference_mode():
             mask = pack_labels(
-                self._score(vol, p), self.cfg.thres_liver, self.cfg.thres_tumor,
+                self._score(self._wire(vol, p), p), self.cfg.thres_liver, self.cfg.thres_tumor,
                 num_classes=self.num_classes,
             )
             if sparse:

@@ -8,7 +8,8 @@ connected-component postprocess runs on the host (``infer/postprocess.py``
 with ``native/postprocess.cpp``) or, with ``InferConfig.device_postprocess``
 and the device-resident scorer, on the device after the scoring
 (``infer/device_postprocess.py``); both give the reference's labelmap byte
-for byte.
+for byte. The stages are named scopes on a ``utils.profiling.trace``
+timeline: scoring (the host's queueing of it), fetch and postprocess.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from pathlib import Path
 import numpy as np
 
 from ..data import nifti
+from ..utils.profiling import annotate
 from . import postprocess
 from .device_pipeline import DeviceVolumeScorer, TiledVolumeScorer
 from .sliding_window import WindowPredictor
@@ -51,22 +53,26 @@ class VolumePredictor:
         icfg = self.cfg.infer
         img = np.asarray(vol, np.float32) - icfg.mean  # test.py:55
         mask, z_lo, z_hi = postprocess.liver_mask_extent(ext_liver_mask)
-        if not icfg.device_resident:
-            return "probs", self.windows.predict_volume(img, z_lo, z_hi), mask
-        if icfg.device_postprocess:
-            return "final", self.windows.labelmask_async(img, z_lo, z_hi, ext_mask=mask), None
-        return "packed", self.windows.labelmask_async(img, z_lo, z_hi), mask
+        with annotate("scoring"):
+            if not icfg.device_resident:
+                return "probs", self.windows.predict_volume(img, z_lo, z_hi), mask
+            if icfg.device_postprocess:
+                return "final", self.windows.labelmask_async(img, z_lo, z_hi, ext_mask=mask), None
+            return "packed", self.windows.labelmask_async(img, z_lo, z_hi), mask
 
     def collect(self, handle) -> np.ndarray:
         """Fetch a dispatched volume's labelmask and, unless the device
         postprocessed it, postprocess it on the host."""
         kind, payload, mask = handle
         if kind == "probs":
-            return _compose(payload, mask, self.cfg.infer)
-        labels = self.windows.labelmask_collect(payload)
+            with annotate("postprocess"):
+                return _compose(payload, mask, self.cfg.infer)
+        with annotate("fetch"):
+            labels = self.windows.labelmask_collect(payload)
         if kind == "final":
             return labels
-        return postprocess.compose_from_masks(labels >= 1, labels >= 3, mask)
+        with annotate("postprocess"):
+            return postprocess.compose_from_masks(labels >= 1, labels >= 3, mask)
 
 
 def _compose(probs, mask, icfg) -> np.ndarray:

@@ -42,7 +42,7 @@ class DenseUNet2D(nn.ModuleDict):
         compression = 1.0 - reduction
 
         def conv(name, cin, cout, k, **kw):
-            self[name] = L.Conv(cin, cout, k, ndim=2, device=device, **kw)
+            self[name] = L.Conv(cin, cout, k, ndim=2, name=name, device=device, **kw)
 
         def bn_scale(base, c):
             self[base + "_bn"] = L.BatchNorm(c, eps=EPS_ENCODER, device=device)
@@ -85,7 +85,7 @@ class DenseUNet2D(nn.ModuleDict):
 
     def forward(
         self, x, ctx: L.Ctx | None = None, *, bn_frozen: bool = False,
-        decoder_dropout: float = 0.3, block_dropout: float = 0.0,
+        decoder_dropout: float = 0.3, block_dropout: float = 0.0, taps: dict | None = None,
     ):
         """x: (B, H, W, 3), H and W divisible by 32 ->
         (ac_up4 features (B, H, W, F), logits (B, H, W, num_classes)).
@@ -94,21 +94,30 @@ class DenseUNet2D(nn.ModuleDict):
         statistics unless ``bn_frozen``, dropout runs at ``block_dropout``
         after every encoder conv and at ``decoder_dropout`` before bn_up4,
         and each conv block may be rematerialised (denseunet2d.py:46-218).
+        ``taps``, when given a dict, records the reference graph's tap layers
+        (relu1, concat_{stage}_{n}, relu{S}_blk, ac_up4, dense167classifer)
+        for parity audits (weights/parity.py), each (B, H, W, C).
         """
         assert x.dim() == 4 and x.shape[1] % 32 == 0 and x.shape[2] % 32 == 0, x.shape
         frozen, rate = bn_frozen, block_dropout
         x = L.channels_last(x.movedim(-1, 1))
         x = self._bsr(self["conv1"](x), "conv1", ctx, frozen)
+        L.tap(taps, "relu1", x)
         x = L.max_pool(x, 3, 2, pad=1)
         for block_idx, nb_layers in enumerate(self.blocks):
             stage = block_idx + 2
+            last = block_idx == len(self.blocks) - 1
             for branch in range(1, nb_layers + 1):  # dense block (densenet.py:103-193)
                 block = lambda c, f, base=f"conv{stage}_{branch}": self._conv_block(
                     c, f, base, frozen, rate
                 )
                 x = L.channels_last(torch.cat([x, L.maybe_remat(ctx, block, x)], dim=1))
+            if not last:
+                L.tap(taps, f"concat_{stage}_{nb_layers}", x)
             x = self._bsr(x, f"conv{stage}_blk", ctx, frozen)
-            if block_idx < len(self.blocks) - 1:  # transition (densenet.py:140-166)
+            if last:
+                L.tap(taps, f"relu{stage}_blk", x)
+            else:  # transition (densenet.py:140-166)
                 x = L.maybe_dropout(ctx, self[f"conv{stage}_blk"](x), rate)
                 x = L.avg_pool(x, 2, 2)
         for idx in range(5):  # UpSample2x -> Conv3x3 -> [Dropout] -> BN -> ReLU
@@ -117,4 +126,6 @@ class DenseUNet2D(nn.ModuleDict):
                 x = L.maybe_dropout(ctx, x, decoder_dropout)
             x = torch.relu(self[f"bn_up{idx}"](x, ctx, frozen=frozen))
         logits = self["dense167classifer"](x)
+        L.tap(taps, "ac_up4", x)
+        L.tap(taps, "dense167classifer", logits)
         return x.movedim(1, -1), logits.movedim(1, -1)

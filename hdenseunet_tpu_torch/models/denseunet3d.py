@@ -48,7 +48,7 @@ class DenseUNet3D(nn.ModuleDict):
         compression = 1.0 - reduction
 
         def conv(name, cin, cout, k, **kw):
-            self[name] = L.Conv(cin, cout, k, ndim=3, device=device, **kw)
+            self[name] = L.Conv(cin, cout, k, ndim=3, name=name, device=device, **kw)
 
         def bn_scale(base, c):
             self[base + "_bn"] = L.BatchNorm(c, eps=EPS_ENCODER, device=device)
@@ -90,14 +90,16 @@ class DenseUNet3D(nn.ModuleDict):
 
     def forward(
         self, x, ctx: L.Ctx | None = None, *, bn_frozen: bool = False,
-        block_dropout: float = 0.0,
+        block_dropout: float = 0.0, taps: dict | None = None,
     ):
         """x: (B, H, W, D, C), H and W divisible by 32, D by 4 ->
         (ac_up4 features (B, H, W, D, F), logits (B, H, W, D, num_classes)).
 
         ``ctx`` None is inference; a training ``ctx`` gives live BNs (unless
         ``bn_frozen``), dropout at ``block_dropout`` after every encoder conv
-        and per-block remat (denseunet3d.py:126-294)."""
+        and per-block remat (denseunet3d.py:126-294). ``taps``, when given a
+        dict, records 3dconcat_{stage}_{n}, 3drelu{S}_blk, 3dac_up4 and
+        3dclassifer (weights/parity.py), each (B, H, W, D, C)."""
         assert x.dim() == 5 and x.shape[1] % 32 == 0 and x.shape[2] % 32 == 0, x.shape
         assert x.shape[3] % 4 == 0, f"depth {x.shape[3]} must be divisible by 4"
         frozen, rate = bn_frozen, block_dropout
@@ -106,17 +108,24 @@ class DenseUNet3D(nn.ModuleDict):
         x = L.max_pool(x, 3, 2, pad=1)
         for block_idx, nb_layers in enumerate(self.blocks):
             stage = block_idx + 2
+            last = block_idx == len(self.blocks) - 1
             for branch in range(1, nb_layers + 1):  # dense block (denseunet3d.py:18-77)
                 block = lambda c, f, base=f"3dconv{stage}_{branch}": self._conv_block(
                     c, f, base, frozen, rate
                 )
                 x = L.channels_last(torch.cat([x, L.maybe_remat(ctx, block, x)], dim=1))
+            if not last:
+                L.tap(taps, f"3dconcat_{stage}_{nb_layers}", x)
             x = self._bsr(x, f"3dconv{stage}_blk", ctx, frozen)
-            if block_idx < len(self.blocks) - 1:  # z-preserving transition
+            if last:
+                L.tap(taps, f"3drelu{stage}_blk", x)
+            else:  # z-preserving transition
                 x = L.maybe_dropout(ctx, self[f"3dconv{stage}_blk"](x), rate)
                 x = L.avg_pool(x, (2, 2, 1), (2, 2, 1))
         for idx, up in enumerate(UPSAMPLE):  # UpSample -> Conv3x3x3 -> BN -> ReLU
             x = self[f"3dconv_up{idx}"](L.upsample_nearest(x, up))
             x = torch.relu(self[f"3dbn_up{idx}"](x, ctx, frozen=frozen))
         logits = self["3dclassifer"](x)
+        L.tap(taps, "3dac_up4", x)
+        L.tap(taps, "3dclassifer", logits)
         return x.movedim(1, -1), logits.movedim(1, -1)

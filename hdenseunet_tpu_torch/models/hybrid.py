@@ -46,9 +46,11 @@ class HFFHead(nn.ModuleDict):
 
     def __init__(self, width, *, num_classes=3, device=None):
         super().__init__()
-        self["fianl_conv"] = L.Conv(width, HEAD_WIDTH, 3, ndim=3, device=device)  # [sic]
+        self["fianl_conv"] = L.Conv(width, HEAD_WIDTH, 3, ndim=3, name="fianl_conv", device=device)  # [sic]
         self["final_bn"] = L.BatchNorm(HEAD_WIDTH, eps=1e-3, device=device)
-        self["2d3dclassifer"] = L.Conv(HEAD_WIDTH, num_classes, 1, ndim=3, device=device)
+        self["2d3dclassifer"] = L.Conv(
+            HEAD_WIDTH, num_classes, 1, ndim=3, name="2d3dclassifer", device=device
+        )
 
     def forward(self, feat3d, fea2d, ctx: L.Ctx | None = None, *, arch: str = "end2end"):
         """feat3d, fea2d: (B, H, W, D, F) -> logits (B, H, W, D, num_classes)."""
@@ -76,28 +78,38 @@ class HDenseUNet(nn.Module):
         assert width2d == width3d, (width2d, width3d)
         self.head = HFFHead(width3d, num_classes=num_classes, device=device)
 
-    def forward(self, vol, ctx: L.Ctx | None = None, *, arch: str = "end2end"):
+    def forward(
+        self, vol, ctx: L.Ctx | None = None, *, arch: str = "end2end", taps: dict | None = None,
+    ):
         """vol: (B, H, W, D, 1); H, W divisible by 32; D by 4 ->
         logits (B, H, W, D, num_classes). ``ctx``: None for inference, a
-        training :class:`layers.Ctx` otherwise (hybrid.py:68-118)."""
+        training :class:`layers.Ctx` otherwise (hybrid.py:68-118). ``taps``,
+        when given a dict, records the fusion boundary: res2d, fea2d, feat3d
+        and 2d3dclassifer, each (B, H, W, D, C) (weights/parity.py)."""
         assert arch in ("end2end", "3dpart"), arch
         b, _, _, d = vol.shape[:4]
         feat2d, logits2d = self.net2d(
             stack_adjacent_slices(vol), ctx, bn_frozen=True, decoder_dropout=0.0
         )
-        return self.fuse(
-            vol, unstack_to_volume(logits2d, b, d), unstack_to_volume(feat2d, b, d), ctx,
-            arch=arch,
-        )
+        res2d, fea2d = unstack_to_volume(logits2d, b, d), unstack_to_volume(feat2d, b, d)
+        if taps is not None:
+            taps.update(res2d=res2d, fea2d=fea2d)
+        return self.fuse(vol, res2d, fea2d, ctx, arch=arch, taps=taps)
 
-    def fuse(self, vol, res2d, fea2d, ctx: L.Ctx | None = None, *, arch: str = "end2end"):
+    def fuse(
+        self, vol, res2d, fea2d, ctx: L.Ctx | None = None, *, arch: str = "end2end",
+        taps: dict | None = None,
+    ):
         """The hybrid after its 2D branch: x250 fusion -> 3D DenseUNet -> HFF.
 
         vol (B,H,W,D,1), res2d (B,H,W,D,C) 2D logits, fea2d (B,H,W,D,F) 2D
-        features -> logits (B,H,W,D,C)."""
+        features -> logits (B,H,W,D,C); ``taps`` gets feat3d and the logits."""
         input3d = torch.cat([vol, res2d * LOGIT_AMPLIFICATION], dim=-1)
         feat3d, _ = self.net3d(input3d, ctx)
-        return self.head(feat3d, fea2d, ctx, arch=arch)
+        logits = self.head(feat3d, fea2d, ctx, arch=arch)
+        if taps is not None:
+            taps.update({"feat3d": feat3d, "2d3dclassifer": logits})
+        return logits
 
 
 def is_2d_name(name: str) -> bool:

@@ -18,6 +18,9 @@ with batch statistics and write their new moving statistics into
 ``ctx.new_stats``, dropout draws from ``ctx.generator``, and ``ctx.remat``
 checkpoints every conv block (:func:`maybe_remat`).
 
+Inside :func:`count_flops` every :class:`Conv` forward adds its FLOPs to
+the open counter, the hook ``utils/flops.py`` counts the real graph with.
+
 Numerical-parity notes carried over from the JAX kit:
 * encoder convs pad explicitly and symmetrically (ZeroPadding + VALID);
 * decoder 'same' convs use the TF split, extra padding at the end;
@@ -25,6 +28,9 @@ Numerical-parity notes carried over from the JAX kit:
 * avg pool sums in float32.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import numpy as np
 import torch
@@ -124,6 +130,13 @@ def channels_last(x):
     return x.contiguous(memory_format=_FORMATS[x.dim()])
 
 
+def tap(taps: dict | None, name: str, x):
+    """Record x under ``name`` in ``taps`` (when given) in the JAX package's
+    channels-last logical order, (B, H, W[, D], C): a view, no copy."""
+    if taps is not None:
+        taps[name] = x.movedim(1, -1)
+
+
 def norm_tuple(v, n):
     if isinstance(v, int):
         return (v,) * n
@@ -154,14 +167,50 @@ def _pad_arg(pads):
     return [p for lo_hi in reversed(pads) for p in lo_hi]
 
 
+class FlopCounter:
+    """Conv FLOPs of the forwards run while it is open (:func:`count_flops`):
+    ``total``, and per layer name in ``table`` when one is given."""
+
+    def __init__(self, table: dict | None = None):
+        self.total = 0.0
+        self.table = table
+
+    def add(self, name, flops: float):
+        self.total += flops
+        if self.table is not None:
+            self.table[name] = self.table.get(name, 0.0) + flops
+
+
+_flop_counter: contextvars.ContextVar[FlopCounter | None] = contextvars.ContextVar(
+    "flop_counter", default=None
+)
+
+
+@contextlib.contextmanager
+def count_flops(table: dict | None = None):
+    """Open a :class:`FlopCounter` for the block, in this thread: every
+    :class:`Conv` forward inside adds ``2 * N * prod(out_spatial) *
+    features * prod(kernel) * cin`` to it (layers.py:96-106). The
+    convolutions still run; on the meta device they run no arithmetic
+    (``utils/flops.py``)."""
+    counter = FlopCounter(table)
+    token = _flop_counter.set(counter)
+    try:
+        yield counter
+    finally:
+        _flop_counter.reset(token)
+
+
 class Conv(nn.Module):
-    """N-d convolution (N = 2 or 3), kernel stored (O, I, *k)."""
+    """N-d convolution (N = 2 or 3), kernel stored (O, I, *k). ``name`` is
+    the reference graph's layer name, the key of a FLOP table."""
 
     def __init__(
         self, cin, features, kernel, *, ndim, stride=1, padding="same",
-        use_bias=True, init="glorot_uniform", device=None,
+        use_bias=True, init="glorot_uniform", name=None, device=None,
     ):
         super().__init__()
+        self.name = name
         self.kernel_size = norm_tuple(kernel, ndim)
         self.stride = norm_tuple(stride, ndim)
         self.padding = padding
@@ -176,6 +225,16 @@ class Conv(nn.Module):
 
     def forward(self, x):
         pads = conv_padding(x.shape[2:], self.kernel_size, self.stride, self.padding)
+        counter = _flop_counter.get()
+        if counter is not None:
+            out = [
+                (s + lo + hi - k) // st + 1
+                for s, (lo, hi), k, st in zip(x.shape[2:], pads, self.kernel_size, self.stride)
+            ]
+            counter.add(self.name, (
+                2.0 * int(x.shape[0]) * float(np.prod(out)) * self.kernel.shape[0]
+                * float(np.prod(self.kernel_size)) * int(x.shape[1])
+            ))
         w = self.kernel.to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
         conv = F.conv2d if self.ndim == 2 else F.conv3d

@@ -9,8 +9,8 @@ affine, and the ReLU after it is a clamp:
 ``AffineReLU`` is the differentiable op, the counterpart of the JAX custom
 VJP ``_affine_relu_2d``: its forward is ``affine_relu`` and its backward
 ``affine_relu_backward``. On a CUDA tensor each launches its hand-written
-kernel in ``csrc/fused_affine.cu`` or raises; on a CPU tensor each runs its
-plain PyTorch version (``affine_relu_reference``,
+kernel in ``csrc/fused_affine.cu`` or raises; on a CPU tensor (or a meta
+tensor, which computes nothing) each runs its plain PyTorch version (``affine_relu_reference``,
 ``affine_relu_backward_reference``). There is no fallback from a kernel to
 its plain version.
 
@@ -114,12 +114,14 @@ def affine_relu(x, scale, shift, *, relu: bool = True):
 
     x: (N, C, ...) float32 or bfloat16, channels-last contiguous on CUDA;
     scale, shift: (C,) float (the folded pair of :func:`fold_bn_scale`).
-    A CPU tensor takes :func:`affine_relu_reference`. A CUDA tensor launches
-    K1 and counts the launch in ``affine_relu.launches``, or raises. The
+    A CPU tensor takes :func:`affine_relu_reference`, and so does a meta
+    tensor, which computes nothing (``utils/flops.py`` counts FLOPs on the
+    meta device). A CUDA tensor launches K1 and counts the launch in
+    ``affine_relu.launches``, or raises. The
     kernel rounds scale and shift to x.dtype as it reads them, so float32
     vectors on x's device reach it without a copy.
     """
-    if x.is_cpu:
+    if x.is_cpu or x.is_meta:
         return affine_relu_reference(x, scale, shift, relu=relu)
     _check_cuda("affine_relu", x)
     c = x.shape[1]
@@ -164,13 +166,13 @@ def affine_relu_backward(g, x, scale, y, *, relu: bool = True):
     given the output gradient g and the forward's output y (read only when
     relu is set).
 
-    g, x, y share a shape and dtype, channels on axis 1. A CPU tensor takes
-    :func:`affine_relu_backward_reference`. A CUDA tensor launches K1's
+    g, x, y share a shape and dtype, channels on axis 1. A CPU or meta
+    tensor takes :func:`affine_relu_backward_reference`. A CUDA tensor launches K1's
     backward, one kernel, and counts the launch in
     ``affine_relu_backward.launches``, or raises: g, x and y must then be
     channels-last contiguous on one device.
     """
-    if x.is_cpu:
+    if x.is_cpu or x.is_meta:
         return affine_relu_backward_reference(g, x, scale, y, relu=relu)
     _check_cuda("affine_relu_backward", x)
     for name, t in (("g", g), ("y", y)) if relu else (("g", g),):

@@ -1,0 +1,1 @@
+from . import profiling, guards  # noqa: F401

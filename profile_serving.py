@@ -81,7 +81,7 @@ def timed_segment_dpp(predictor, vol, ext) -> tuple[np.ndarray, dict]:
     ext_bits = sc._ext_bits(mask, p, vol.shape)
     t.append(time.perf_counter())
     with torch.inference_mode():
-        scores = pack_labels(sc._score(img, p), icfg.thres_liver, icfg.thres_tumor)
+        scores = pack_labels(sc._score(sc._wire(img, p), p), icfg.thres_liver, icfg.thres_tumor)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         dev = compose_final(scores, ext_bits, pack_z=p["zw"])

@@ -20,13 +20,13 @@ from hdenseunet_tpu.core import config as j_config
 from hdenseunet_tpu.data import nifti as j_nifti, preprocess as j_pre
 from hdenseunet_tpu.infer import device_pipeline as j_dp, metrics as j_metrics, postprocess as j_post
 from hdenseunet_tpu.infer import sliding_window as j_sw
-from hdenseunet_tpu.weights import convert as j_convert
+from hdenseunet_tpu.weights import convert as j_convert, parity as j_parity
 from hdenseunet_tpu_torch import native as t_native
 from hdenseunet_tpu_torch.core import config as t_config
 from hdenseunet_tpu_torch.data import nifti as t_nifti, preprocess as t_pre
 from hdenseunet_tpu_torch.infer import device_pipeline as t_dp, metrics as t_metrics, postprocess as t_post
 from hdenseunet_tpu_torch.infer import sliding_window as t_sw
-from hdenseunet_tpu_torch.weights import convert as t_convert
+from hdenseunet_tpu_torch.weights import convert as t_convert, parity as t_parity
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIG_CLASSES = ["DataConfig", "ModelConfig", "TrainConfig", "InferConfig", "Config"]
@@ -217,10 +217,11 @@ def _code(fn) -> str:
     ("convert", "_decode"), ("convert", "_parse_leaf"), ("convert", "_read_layer_group"),
     ("convert", "load_keras_hdf5"), ("convert", "convert_checkpoint"), ("convert", "save_keras_hdf5"),
     ("device_pipeline", "tile_origins"), ("sliding_window", "window_starts"),
+    ("parity", "compare_dumps"),
 ])
 def test_copied_function_equals_the_original(module, name):
     port, orig = {"convert": (t_convert, j_convert), "device_pipeline": (t_dp, j_dp),
-                  "sliding_window": (t_sw, j_sw)}[module]
+                  "sliding_window": (t_sw, j_sw), "parity": (t_parity, j_parity)}[module]
     assert _code(getattr(port, name)) == _code(getattr(orig, name))
 
 
@@ -237,6 +238,7 @@ def test_converter_tables_and_leaf_parsing_equal_the_originals():
         assert t_convert._parse_leaf(wname) == want
     assert t_convert._decode(b"conv1") == j_convert._decode(b"conv1") == "conv1"
     assert t_dp.tile_origins(512, 256, 170) == j_dp.tile_origins(512, 256, 170) == [0, 170, 256]
+    assert t_parity.TAPS == j_parity.TAPS
 
 
 def _forbidden(name: str) -> bool:

@@ -10,6 +10,8 @@ JAX is absent:
 
     python -m pytest --noconftest -q tests/test_torch_ops.py -k cuda
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -172,9 +174,14 @@ def test_cpu_tensor_takes_plain_path_without_counting():
 
 
 def test_other_devices_raise():
-    x = torch.empty((4, 8), device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
+    """A tensor on neither the CPU nor a card, nor the meta device (which
+    takes the plain version and computes nothing), raises; a stand-in
+    carries the device, since this build makes tensors on no other."""
+    x = types.SimpleNamespace(is_cpu=False, is_meta=False, is_cuda=False, device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="unsupported device xpu"):
         K.affine_relu(x, torch.ones(8), torch.zeros(8))
+    with pytest.raises(ValueError, match="unsupported device xpu"):
+        K.affine_relu_backward(x, x, torch.ones(8), x)
 
 
 def test_rows_contiguous_and_vector_path_rules():
