@@ -81,25 +81,54 @@ failure exits non-zero):
    full-preset weights written as an .npz: the 2D model at 224x224 and the
    end2end hybrid at 224x224x8 dumped in float32 on the card and on the
    CPU, ``compare`` exiting 0 at the tool's defaults;
+9. data parallelism over the 'data' mesh, full width (one step of each
+   stage from the seeded weights on the first global batch is the
+   one-process reference):
+   - train_dp_w1: this process joins a group of one rank over NCCL; one
+     step of each stage through the mesh held to the one-process step at
+     phase 7's bars, then phase 5's runs through ``train(..., mesh=)`` with
+     phase 5's launches per step and the all-reduces timed;
+   - train_dp_w2: two processes (``chip_smoke.py dp-rank``) share the card
+     over gloo, 4 rows each of global batch 8, 3 steps of end2end and of
+     the 2D stage: the ranks' parameters and statistics bit-identical,
+     launches per step as one process's, ms/step and the all-reduce share
+     of a step; step 1 held to the one-process step in float32 (TF32 off),
+     the bfloat16 step 1's difference reported. Two ranks on one card
+     check the semantics, not scaling;
+   - serve_dp_w2: the same two processes score phase 4's first volume
+     through ``VolumePredictor(mesh=)``, window_batch 8 (4 a rank): in
+     float32 the labelmap equals one process's byte for byte; in bfloat16
+     (phase 4's) the ranks' labelmaps equal each other's and their
+     difference from phase 4's is reported; K1 launches and s/volume of
+     each rank;
+   - cli_train_dp: ``torchrun --standalone --nproc_per_node 1`` runs
+     ``train --arch end2end`` (2 steps, a checkpoint) through the port's
+     CLI over NCCL (``chip_smoke.py cli-rank``), then this process resumes
+     it for a step with no torchrun: the restored state equals the saved
+     one bit for bit;
 then a JSON line describing the kernels, and the last line
 {"ok": true, "device": {...}}.
 
-Each path of phases 4-6 and 8 (serve, serve_dpp, serve_dpp_dense,
+Each path of phases 4-6, 8 and 9 (serve, serve_dpp, serve_dpp_dense,
 serve_per_window, serve_shared_2d, serve_uint8, serve_host_loop, serve_tiled,
-mfu, trace, train_*, train_end2end_convs, cli_*, cli_test_tiled, parity)
-runs with every launch counter
-set to 0 just before it and read just after, and fails if a kernel of that
-path did not launch.
+mfu, trace, train_*, train_end2end_convs, cli_*, cli_test_tiled, parity,
+train_dp_w1_*, train_dp_w2_*, serve_dp_w2, cli_train_dp, cli_train_dp_resume)
+runs with every launch counter set to 0 just before it and read just after
+(in the process that runs it), and fails if a kernel of that path did not
+launch.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import datetime
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from collections import Counter
@@ -155,6 +184,9 @@ HOST_LOOP_BOUND = dict(prob=2.0**-5, voxels=1e-4)
 SCOPES = ("scoring", "fetch", "postprocess")  # VolumePredictor's annotate scopes
 # cuDNN's and CUTLASS's convolution kernels (implicit GEMM and GEMM forms)
 CONV_KERNEL = re.compile(r"xmma|cutlass|cudnn|conv(?!ert)|gemm", re.IGNORECASE)
+DP_RANKS, DP_STEPS = 2, 3  # processes sharing the card over gloo; their steps a stage
+DP_TIMEOUT = datetime.timedelta(seconds=300)  # each rendezvous and collective
+DP_WALL = 900  # seconds for a group of rank processes, then the phase fails
 
 
 def card_line() -> str:
@@ -659,7 +691,7 @@ def serve_path(card: str) -> dict:
         f"label counts {counts}, host postprocess {host_pp} [{card}]"
     )
     return dict(launches=launches, model=model, predictor=predictor, cases=cases, labelmaps=labelmaps,
-                seconds=seconds, scoring=scoring, peak=peak, runs=runs // len(cases),
+                probs=probs.cpu(), seconds=seconds, scoring=scoring, peak=peak, runs=runs // len(cases),
                 k1_floor=bsr_per_forward * runs, bsr_per_forward=bsr_per_forward)
 
 
@@ -1135,16 +1167,10 @@ def serve_tiled(card: str, serve: dict) -> dict:
     return launches
 
 
-def train_path(card: str, arch: str, policy: str = "full") -> dict:
-    """``train`` for TRAIN_STEPS steps at full width under ``remat_policy``
-    ``policy``; ms/step over steps 2-4 (each step ends in the loss drain's
-    sync: log_every_steps = 1). Returns the launch counts, the recorded
-    kernel calls, the ms/step, the losses, the peak memory and the final
-    model's state_dict."""
+def train_config(arch: str, policy: str = "full"):
+    """Phase 5's training configuration: full preset, bfloat16, global
+    batch 8, remat under ``policy``, a loss drain (sync) every step."""
     from hdenseunet_tpu_torch.core.config import Config
-    from hdenseunet_tpu_torch.data.sampler import synthetic_batches
-    from hdenseunet_tpu_torch.train.trainer import train
-    from hdenseunet_tpu_torch.utils.profiling import StepTimer
 
     cfg = Config()
     cfg.model.compute_dtype = "bfloat16"
@@ -1153,13 +1179,32 @@ def train_path(card: str, arch: str, policy: str = "full") -> dict:
     cfg.train.remat = True
     cfg.train.remat_policy = policy
     cfg.train.log_every_steps = 1
-    cfg.train.save_path = str(BUILD / "chip_smoke_train" / f"{arch}_{policy}")
-    mode = "2d" if arch == "2d" else "hybrid"
+    return cfg
+
+
+def global_batches(cfg, n: int) -> list:
+    """The first n synthetic global batches of phase 5's feed."""
+    from hdenseunet_tpu_torch.data.sampler import synthetic_batches
+
     gen = synthetic_batches(
-        mode=mode, batch=cfg.train.batch, input_size=cfg.model.input_size,
-        input_cols=cfg.model.input_cols, seed=SEED,
+        mode="2d" if cfg.train.arch == "2d" else "hybrid", batch=cfg.train.batch,
+        input_size=cfg.model.input_size, input_cols=cfg.model.input_cols, seed=SEED,
     )
-    batches = [next(gen) for _ in range(TRAIN_STEPS)]
+    return [next(gen) for _ in range(n)]
+
+
+def train_path(card: str, arch: str, policy: str = "full", mesh=None, label: str = "train path") -> dict:
+    """``train`` for TRAIN_STEPS steps at full width under ``remat_policy``
+    ``policy`` (over ``mesh`` when given); ms/step over steps 2-4 (each step
+    ends in the loss drain's sync: log_every_steps = 1). Returns the launch
+    counts, the recorded kernel calls, the ms/step, the losses, the peak
+    memory and the final model's state_dict."""
+    from hdenseunet_tpu_torch.train.trainer import train
+    from hdenseunet_tpu_torch.utils.profiling import StepTimer
+
+    cfg = train_config(arch, policy)
+    cfg.train.save_path = str(BUILD / "chip_smoke_train" / f"{arch}_{policy}")
+    batches = global_batches(cfg, TRAIN_STEPS)
     asked, timer = [], StepTimer()
 
     def timed():
@@ -1175,7 +1220,7 @@ def train_path(card: str, arch: str, policy: str = "full") -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with recorded_calls() as calls:
-        state = train(cfg, timed(), max_steps=TRAIN_STEPS, device="cuda", log_fn=lambda *a: None)
+        state = train(cfg, timed(), mesh=mesh, max_steps=TRAIN_STEPS, device="cuda", log_fn=lambda *a: None)
     torch.cuda.synchronize()
     end = time.perf_counter()
     timer.tick()
@@ -1194,7 +1239,7 @@ def train_path(card: str, arch: str, policy: str = "full") -> dict:
     slices = cfg.train.batch * (cfg.model.input_cols if arch != "2d" else 1)
     shape = f"{cfg.model.input_size}^2" + (f"x{cfg.model.input_cols}" if arch != "2d" else "")
     print(
-        f"train path {arch}: {steps} steps, full preset bf16 remat ({policy}), batch {cfg.train.batch} x "
+        f"{label} {arch}: {steps} steps, full preset bf16 remat ({policy}), batch {cfg.train.batch} x "
         f"{shape}: first step {(asked[1] - asked[0]) * 1e3:.1f} ms, {ms:.1f} ms/step over steps "
         f"2-{steps}, {slices / ms * 1e3:.1f} slices/s, peak {peak / 2**30:.2f} GiB, losses "
         f"{[round(v, 5) for v in losses]}, launches {launches} "
@@ -1215,10 +1260,6 @@ def train_convs_path(card: str, full: dict) -> dict:
     the first step: sums by float atomics in the backward reorder). Then one
     step of each policy from the same seeded weights and batch, held to
     phase 7's bars for a step against another. Returns the launch counts."""
-    from hdenseunet_tpu_torch.core.config import Config
-    from hdenseunet_tpu_torch.data.sampler import synthetic_batches
-    from hdenseunet_tpu_torch.train.trainer import create_train_state, train_step
-
     steps = TRAIN_STEPS
     per_step = dict(affine_relu=BSR_2D + REMAT_2D, affine_relu_backward=BSR_2D, wce_forward=1, wce_backward=1)
     convs = train_path(card, "end2end", "convs")
@@ -1232,31 +1273,10 @@ def train_convs_path(card: str, full: dict) -> dict:
 
     runs = {}
     for policy in ("full", "convs"):
-        cfg = Config()
-        cfg.model.compute_dtype = "bfloat16"
-        cfg.train.remat_policy = policy
-        batch = next(synthetic_batches(mode="hybrid", batch=8, input_size=cfg.model.input_size,
-                                       input_cols=cfg.model.input_cols, seed=SEED))
-        st = create_train_state(cfg, "end2end", device="cuda")
-        before = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
-        reset_counts()
-        loss = float(train_step(st, batch, cfg))
-        assert read_counts() == only(**per_step), (policy, read_counts())
-        runs[policy] = (loss, before, {k: v.detach().clone() for k, v in st.model.state_dict().items()})
-        del st
-    (loss_f, before, after_f), (loss_c, before_c, after_c) = runs["full"], runs["convs"]
-    assert abs(loss_c - loss_f) <= 1e-5 * abs(loss_f), (loss_c, loss_f)
-    worst = 0.0
-    for name, w_full in after_f.items():
-        assert torch.equal(before[name], before_c[name]), name
-        if name.endswith(("moving_mean", "moving_variance")):
-            torch.testing.assert_close(after_c[name], w_full, rtol=1e-4, atol=1e-4)
-            continue
-        d_full, d_convs = w_full - before[name], after_c[name] - before[name]
-        allowed = 2 * ULP_FP32 * w_full.abs() + 1e-9
-        excess = float(((d_convs - d_full).abs() - allowed).clamp_min(0).norm())
-        assert excess <= TRAIN_UPDATE_RTOL * float(d_full.norm()), (name, excess, float(d_full.norm()))
-        worst = max(worst, excess / float(d_full.norm()) if d_full.any() else 0.0)
+        runs[policy] = one_step("end2end", policy)
+        assert runs[policy]["launches"] == only(**per_step), (policy, runs[policy]["launches"])
+    loss_f, loss_c = runs["full"]["loss"], runs["convs"]["loss"]
+    worst = step_error(runs["full"], runs["convs"])
     print(f"train path end2end remat_policy='convs': {convs['ms']:.1f} ms/step against 'full' "
           f"{full['ms']:.1f}, peak {convs['peak'] / 2**30:.2f} GiB against {full['peak'] / 2**30:.2f}; "
           f"launches per step as 'full'; losses {[round(v, 6) for v in convs['losses']]} against 'full' "
@@ -1264,6 +1284,75 @@ def train_convs_path(card: str, full: dict) -> dict:
           f"two 'full' runs; one step from the same weights and batch: loss {loss_c:.7g} against "
           f"{loss_f:.7g}, worst update error {worst:.3g} of its tensor's update norm [{card}]")
     return convs["launches"]
+
+
+@contextlib.contextmanager
+def exact_float32():
+    """TF32 off for cuDNN and matmuls while open (float32 is float32)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def one_step(arch: str, policy: str = "full", mesh=None, dtype: str = "bfloat16") -> dict:
+    """One ``train_step`` of phase 5's configuration, in ``dtype`` (float32:
+    TF32 off), from the seeded weights on the first global batch (this
+    rank's rows of it under ``mesh``): the loss, the launches, and the
+    state_dict before and after, on the host."""
+    from hdenseunet_tpu_torch.core.mesh import shard_batch
+    from hdenseunet_tpu_torch.train.trainer import create_train_state, train_step
+
+    cfg = train_config(arch, policy)
+    cfg.model.compute_dtype = dtype
+    batch = global_batches(cfg, 1)[0]
+    if mesh is not None:
+        batch = shard_batch(mesh, batch)
+    with exact_float32() if dtype == "float32" else contextlib.nullcontext():
+        st = create_train_state(cfg, arch, device="cuda")
+        host = lambda: {k: v.detach().to("cpu", copy=True) for k, v in st.model.state_dict().items()}
+        before = host()
+        reset_counts()
+        loss = float(train_step(st, batch, cfg, mesh))
+    return dict(loss=loss, launches=read_counts(), before=before, after=host())
+
+
+def step_report(ref: dict, got: dict) -> tuple[float, list]:
+    """Phase 7's bars for one step (``one_step``'s result) against another
+    from the same weights: the loss within 1e-5 of its value, the moving
+    statistics within 1e-4, and each other tensor's update within
+    TRAIN_UPDATE_RTOL of its norm, after an allowance of two float32 ulps
+    of the parameter per element. Returns the worst update error as a
+    share of its tensor's update norm, and what failed a bar."""
+    failed = []
+    if abs(got["loss"] - ref["loss"]) > 1e-5 * abs(ref["loss"]):
+        failed.append(("loss", got["loss"], ref["loss"]))
+    worst = 0.0
+    for name, w_ref in ref["after"].items():
+        before, w_got = ref["before"][name], got["after"][name]
+        if not torch.equal(before, got["before"][name]):
+            failed.append((name, "differs before the step"))
+        if name.endswith(("moving_mean", "moving_variance")):
+            if not torch.allclose(w_got, w_ref, rtol=1e-4, atol=1e-4):
+                failed.append((name, float((w_got - w_ref).abs().max())))
+            continue
+        d_ref, d_got = w_ref - before, w_got - before
+        allowed = 2 * ULP_FP32 * w_ref.abs() + 1e-9
+        excess = float(((d_got - d_ref).abs() - allowed).clamp_min(0).norm())
+        share = excess / float(d_ref.norm()) if d_ref.any() else (0.0 if excess == 0 else float("inf"))
+        if excess > TRAIN_UPDATE_RTOL * float(d_ref.norm()):
+            failed.append((name, share))
+        worst = max(worst, share)
+    return worst, failed
+
+
+def step_error(ref: dict, got: dict) -> float:
+    """:func:`step_report`, failing on any tensor past its bar."""
+    worst, failed = step_report(ref, got)
+    assert not failed, failed[:20]
+    return worst
 
 
 @contextlib.contextmanager
@@ -1583,6 +1672,392 @@ def train_check(card: str) -> None:
     )
 
 
+@contextlib.contextmanager
+def timed_all_reduces():
+    """Time every ``torch.distributed.all_reduce`` the port makes while
+    open, the card synchronised before and after each (the sync adds to
+    the step it times): yields the list of their seconds."""
+    import torch.distributed as dist
+
+    spans, inner = [], dist.all_reduce
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+        return out
+
+    dist.all_reduce = timed
+    try:
+        yield spans
+    finally:
+        dist.all_reduce = inner
+
+
+def train_dp_w1(card: str, one_steps: dict) -> dict:
+    """train_dp_w1: this process joins a process group of one rank over
+    NCCL (a file store under build/), and phase 5's runs go through the
+    'data' mesh: per stage, one step from the seeded weights held to the
+    one-process step at phase 7's bars, then ``train(..., mesh=)`` for
+    TRAIN_STEPS steps with phase 5's launches per step, its all-reduces
+    (the loss sums and the gradient bucket; live statistics reduce only
+    over several ranks) timed. The group is left at the end. Returns the
+    launch counts per stage."""
+    import torch.distributed as dist
+
+    from hdenseunet_tpu_torch.core.mesh import axis_size, make_mesh
+    from hdenseunet_tpu_torch.parallel import multihost
+
+    BUILD.mkdir(parents=True, exist_ok=True)
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_w1_", dir=BUILD))
+    several = multihost.initialize(
+        init_method=f"file://{store}/store", world_size=1, rank=0, backend="nccl", timeout=DP_TIMEOUT,
+    )
+    assert not several and dist.is_initialized()
+    launches = {}
+    try:
+        mesh = make_mesh("cuda")
+        assert axis_size(mesh) == 1 and dist.get_backend() == "nccl", (mesh, dist.get_backend())
+        for arch in ("end2end", "2d"):
+            got = one_step(arch, mesh=mesh)
+            assert got["launches"] == one_steps[arch]["launches"], (got["launches"], one_steps[arch]["launches"])
+            worst = step_error(one_steps[arch], got)
+            with timed_all_reduces() as spans:
+                run = train_path(card, arch, mesh=mesh, label="train_dp_w1")
+            launches[f"train_dp_w1_{arch}"] = run["launches"]
+            print(f"train_dp_w1 {arch}: NCCL, 1 rank; step 1 against the one-process step: loss "
+                  f"{got['loss']:.7g} against {one_steps[arch]['loss']:.7g}, worst update error {worst:.3g} "
+                  f"of its tensor's update norm; {len(spans) // TRAIN_STEPS} all-reduces a step, "
+                  f"{sum(spans) * 1e3 / TRAIN_STEPS:.3f} ms a step synchronised, "
+                  f"{100 * sum(spans) * 1e3 / TRAIN_STEPS / run['ms']:.2f} % of {run['ms']:.1f} ms/step [{card}]")
+            del run
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return launches
+
+
+def ranks_identical(mesh, model) -> bool:
+    """Every parameter and buffer of ``model`` equals rank 0's bit for bit
+    (rank 0's flat copy broadcast, then compared on each rank)."""
+    import torch.distributed as dist
+
+    from hdenseunet_tpu_torch.core.mesh import axis_group
+
+    same = True
+    tensors = [*model.parameters(), *model.buffers()]
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        mine = torch.cat([t.detach().reshape(-1) for t in tensors if t.dtype == dtype])
+        theirs = mine.clone()
+        dist.broadcast(theirs, src=0, group=axis_group(mesh))
+        same = same and torch.equal(mine, theirs)
+    return same
+
+
+def dp_train_rank(arch: str, mesh, out_dir: Path) -> dict:
+    """One rank's part of train_dp_w2 for one stage: one float32 step from
+    the seeded weights on its rows of the first global batch, then DP_STEPS
+    bfloat16 steps on its rows of phase 5's global batches: after step 1
+    and at the end the ranks' parameters and statistics against rank 0's;
+    step 2 timed, step 3 timed with its all-reduces synchronised. Rank 0
+    saves the float32 step and the bfloat16 step 1 for the comparisons
+    with one process."""
+    from hdenseunet_tpu_torch.core.mesh import axis_rank, shard_batch
+    from hdenseunet_tpu_torch.train.trainer import create_train_state, train_step
+
+    exact = one_step(arch, mesh=mesh, dtype="float32")
+    if axis_rank(mesh) == 0:
+        torch.save({k: exact[k] for k in ("loss", "launches", "after")}, out_dir / f"{arch}-float32.pt")
+    del exact
+    cfg = train_config(arch)
+    batches = [shard_batch(mesh, b) for b in global_batches(cfg, DP_STEPS)]
+    st = create_train_state(cfg, arch, device="cuda")
+    reset_counts()
+    walls, losses, spans = [], [], []
+    for i, batch in enumerate(batches):
+        timing = timed_all_reduces() if i == 2 else contextlib.nullcontext([])
+        with timing as found:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(train_step(st, batch, cfg, mesh)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        spans += found
+        if i == 0:
+            identical_1 = ranks_identical(mesh, st.model)
+            if axis_rank(mesh) == 0:
+                torch.save({k: v.detach().cpu() for k, v in st.model.state_dict().items()},
+                           out_dir / f"{arch}-bf16.pt")
+    return dict(launches=read_counts(), losses=losses, walls=walls, all_reduce=spans,
+                identical=(identical_1, ranks_identical(mesh, st.model)), rows=len(batches[0]["image"]))
+
+
+def serve_float32(mesh=None) -> dict:
+    """Phase 4's model and first volume in float32, TF32 off, through
+    ``VolumePredictor`` (over ``mesh`` when given): the labelmap and the
+    scorer's probabilities, on the host."""
+    from hdenseunet_tpu_torch.core.config import Config
+    from hdenseunet_tpu_torch.core.initializers import init_model
+    from hdenseunet_tpu_torch.infer import postprocess
+    from hdenseunet_tpu_torch.infer.predictor import VolumePredictor
+    from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
+
+    cfg = Config()
+    cfg.model.compute_dtype = "float32"
+    vol, ext = synthetic_case(SEED)
+    _, z_lo, z_hi = postprocess.liver_mask_extent(ext)
+    with exact_float32():
+        model = init_model(HDenseUNet(preset=cfg.model.preset, device="cuda"), SEED)
+        predictor = VolumePredictor(model, cfg, arch="end2end", device="cuda", mesh=mesh)
+        labelmap = predictor.segment(vol, ext)
+        probs = predictor.windows.score(vol - cfg.infer.mean, z_lo, z_hi).cpu()
+    return dict(labelmap=labelmap, probs=probs)
+
+
+def dp_serve_rank(mesh, out_dir: Path) -> dict:
+    """One rank's part of serve_dp_w2: phase 4's model and first volume
+    through ``VolumePredictor(mesh=)`` in bfloat16, twice (the first
+    carries cuDNN's first-call cost), K1 launches and s/volume each time;
+    then in float32 (:func:`serve_float32`). Rank 0 saves the probabilities
+    of both for the comparison with one process's."""
+    from hdenseunet_tpu_torch.core.config import Config
+    from hdenseunet_tpu_torch.core.initializers import init_model
+    from hdenseunet_tpu_torch.core.mesh import axis_rank
+    from hdenseunet_tpu_torch.infer import postprocess
+    from hdenseunet_tpu_torch.infer.predictor import VolumePredictor
+    from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
+
+    cfg = Config()
+    cfg.model.compute_dtype = "bfloat16"
+    model = init_model(HDenseUNet(preset=cfg.model.preset, device="cuda"), SEED)
+    predictor = VolumePredictor(model, cfg, arch="end2end", device="cuda", mesh=mesh)
+    vol, ext = synthetic_case(SEED)
+    seconds, k1 = [], []
+    for _ in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        labelmap = predictor.segment(vol, ext)
+        seconds.append(time.perf_counter() - t0)
+        k1.append(read_counts())
+    _, z_lo, z_hi = postprocess.liver_mask_extent(ext)
+    probs = predictor.windows.score(vol - cfg.infer.mean, z_lo, z_hi).cpu()
+    del predictor, model
+    torch.cuda.empty_cache()
+    exact = serve_float32(mesh)
+    if axis_rank(mesh) == 0:
+        torch.save(dict(bf16=probs, float32=exact["probs"]), out_dir / "probs.pt")
+    return dict(labelmap=labelmap, labelmap32=exact["labelmap"], seconds=seconds, launches=k1)
+
+
+def dp_rank(job: dict) -> None:
+    """``chip_smoke.py dp-rank JOB``: one of DP_RANKS processes sharing the
+    card over gloo (train_dp_w2, then serve_dp_w2); results to job['out']."""
+    import torch.distributed as dist
+
+    from hdenseunet_tpu_torch.core.mesh import make_mesh
+    from hdenseunet_tpu_torch.parallel import multihost
+
+    multihost.initialize(init_method=job["init"], world_size=job["world"], rank=job["rank"],
+                         backend="gloo", timeout=DP_TIMEOUT)
+    torch.cuda.set_device(0)
+    mesh = make_mesh("cuda")
+    out = {"train": {}}
+    for arch in ("end2end", "2d"):
+        out["train"][arch] = dp_train_rank(arch, mesh, Path(job["dir"]))
+        torch.cuda.empty_cache()
+    out["serve"] = dp_serve_rank(mesh, Path(job["dir"]))
+    torch.save(out, job["out"])
+    dist.destroy_process_group()
+
+
+def dp_two_ranks(card: str, one_steps: dict, exact_steps: dict, serve_ref: dict) -> dict:
+    """train_dp_w2 and serve_dp_w2: DP_RANKS processes (``dp-rank``) on the
+    one card over gloo, each with its rows of global batch 8 (4) and its 4
+    windows of each batch of 8. Two ranks on one card check the semantics,
+    not scaling: they share its SMs and memory. Step 1 is held to the
+    one-process step in float32 (``exact_steps``): cuDNN picks its kernels
+    by shape, so in bfloat16 the ranks' 4 rows may round otherwise than 8,
+    and a tensor whose gradient is a sum that cancels differs past the
+    bars; the bfloat16 step 1 against ``one_steps`` is reported, not held.
+    The same holds for serving, where the 2D logits enter the 3D branch
+    times 250: in bfloat16 the ranks' labelmaps are held to each other's
+    and their difference from phase 4's is reported; in float32 (one
+    process's in ``serve_ref['float32']``) the labelmap is held to one
+    process's byte for byte, and the probabilities' largest gap is
+    reported. Everything is printed before any check. Returns rank 0's
+    launch counts per path."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=BUILD))
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = spawn_ranks(root, DP_RANKS)
+        print(f"dp ranks: {DP_RANKS} processes, gloo on one card (semantics, not scaling), "
+              f"{time.perf_counter() - t0:.1f} s in all [{card}]")
+        launches, failed = {}, []
+        for arch in ("end2end", "2d"):
+            runs = [out["train"][arch] for out in outs]
+            for r, run in enumerate(runs):
+                ar = sum(run["all_reduce"]) * 1e3
+                print(f"train_dp_w2 {arch} rank {r}: {run['rows']} rows of global batch 8, bf16, {DP_STEPS} "
+                      f"steps, ms/step {[round(w * 1e3, 1) for w in run['walls']]} (step 1 first-call; step "
+                      f"3 with {len(run['all_reduce'])} all-reduces synchronised: {ar:.1f} ms, "
+                      f"{100 * ar / (run['walls'][2] * 1e3):.1f} % of it), losses "
+                      f"{[round(v, 6) for v in run['losses']]}, ranks bit-identical after step 1 and "
+                      f"{DP_STEPS}: {run['identical']}, launches {run['launches']} [{card}]")
+                if run["identical"] != (True, True) or run["launches"] != runs[0]["launches"]:
+                    failed.append((arch, r, run["identical"], run["launches"]))
+                if run["losses"] != runs[0]["losses"] or not all(np.isfinite(run["losses"])):
+                    failed.append((arch, r, run["losses"]))
+            exact = torch.load(root / f"{arch}-float32.pt")
+            worst, bad = step_report(exact_steps[arch], dict(exact_steps[arch], **exact))
+            print(f"train_dp_w2 {arch}: float32 step 1 of 2 ranks against one process's on the global batch: "
+                  f"loss {exact['loss']:.7g} against {exact_steps[arch]['loss']:.7g}, worst update error "
+                  f"{worst:.3g} of its tensor's update norm, past the bars: {bad[:10]} [{card}]")
+            failed += bad
+            bf16 = dict(one_steps[arch], after=torch.load(root / f"{arch}-bf16.pt"), loss=runs[0]["losses"][0])
+            worst16, bad16 = step_report(one_steps[arch], bf16)
+            print(f"train_dp_w2 {arch}: bfloat16 step 1 against one process's (reported, not held): loss "
+                  f"{bf16['loss']:.7g} against {one_steps[arch]['loss']:.7g}, worst update error {worst16:.3g} "
+                  f"of its tensor's update norm, {len(bad16)} tensors past phase 7's bars: "
+                  f"{[(b[0], round(b[1], 3)) if isinstance(b[1], float) else b for b in bad16[:5]]} [{card}]")
+            per_step = {k: n // DP_STEPS for k, n in runs[0]["launches"].items()}
+            if per_step != exact_steps[arch]["launches"] or exact["launches"] != exact_steps[arch]["launches"]:
+                failed.append((arch, per_step, exact["launches"], exact_steps[arch]["launches"]))
+            launches[f"train_dp_w2_{arch}"] = runs[0]["launches"]
+        probs = torch.load(root / "probs.pt")
+        exact = serve_ref["float32"]
+        gap16 = (probs["bf16"] - serve_ref["probs"]).abs()
+        gap32 = float((probs["float32"] - exact["probs"]).abs().max())
+        print(f"serve_dp_w2: rank 0's probabilities against one process's: bfloat16 (phase 4) max gap "
+              f"{float(gap16.max()):.3g}, {int((gap16 > 0).sum())} of {gap16.numel()} values differ; "
+              f"float32 max gap {gap32:.3g} [{card}]")
+        for kind in ("bf16", "float32"):
+            if not (bool(torch.isfinite(probs[kind]).all()) and 0.0 <= float(probs[kind].min())
+                    and float(probs[kind].max()) <= 1.0 + 1e-5):
+                failed.append(("serve_dp_w2 probabilities", kind))
+        for r, out in enumerate(outs):
+            serve = out["serve"]
+            diff = int((serve["labelmap"] != serve_ref["labelmap"]).sum())
+            diff32 = int((serve["labelmap32"] != exact["labelmap"]).sum())
+            print(f"serve_dp_w2 rank {r}: {VOLUME_SHAPE} window_batch 8 (4 a rank), bf16 s/volume "
+                  f"{[round(v, 3) for v in serve['seconds']]} (one process, phase 4: "
+                  f"{[round(v, 3) for v in serve_ref['seconds']]}), K1 launches a volume "
+                  f"{[c['affine_relu'] for c in serve['launches']]} (one process: {serve_ref['k1']}), "
+                  f"labelmap voxels unlike one process's: {diff} in bfloat16, {diff32} in float32 [{card}]")
+            if diff32 or not np.array_equal(serve["labelmap"], outs[0]["serve"]["labelmap"]):
+                failed.append(("serve_dp_w2", r, diff32))
+            counts = serve["launches"][0]
+            if any(c != counts for c in serve["launches"]) or not counts["affine_relu"] or any(
+                    counts[k] for k in K4_NAMES + ("wce_forward", "wce_backward")):
+                failed.append(("serve_dp_w2", r, serve["launches"]))
+        assert not failed, failed[:20]
+        launches["serve_dp_w2"] = outs[0]["serve"]["launches"][0]
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def spawn_ranks(root: Path, world: int) -> list:
+    """Run ``chip_smoke.py dp-rank`` in ``world`` processes meeting at a
+    file store under ``root``; each rank's results come back from its
+    file. Fails if a rank fails or the group outlives DP_WALL (every rank
+    is then killed)."""
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env["LOCAL_RANK"] = "0"  # every rank on the one card
+    procs = [
+        subprocess.Popen(
+            [sys.executable, __file__, "dp-rank", json.dumps(dict(
+                init=f"file://{root}/store", world=world, rank=r, out=str(root / f"rank{r}.pt"), dir=str(root)))],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(world)
+    ]
+    deadline = time.monotonic() + DP_WALL
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"dp rank {r} exited {p.returncode}:\n{log[-6000:]}"
+    return [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def cli_rank(counts: str, argv: list[str]) -> None:
+    """``chip_smoke.py cli-rank COUNTS ARGV...`` under torchrun: the port's
+    CLI (``hdenseunet_tpu_torch.cli.main``, what ``python -m
+    hdenseunet_tpu_torch`` runs) with ARGV in torchrun's environment; rank 0
+    writes the launch counts and the process group it joined to COUNTS."""
+    import torch.distributed as dist
+
+    from hdenseunet_tpu_torch import cli
+
+    reset_counts()
+    state = cli.main(argv)
+    torch.cuda.synchronize()
+    info = dict(launches=read_counts(), step=state.step, device=str(state.device),
+                world=dist.get_world_size(), backend=dist.get_backend(), rank=dist.get_rank())
+    if info["rank"] == 0:
+        Path(counts).write_text(json.dumps(info))
+    dist.destroy_process_group()
+
+
+def cli_train_dp(card: str) -> dict:
+    """cli_train_dp: ``torchrun --standalone --nproc_per_node 1`` (its
+    module, ``torch.distributed.run``) runs ``train --arch end2end`` for 2
+    steps at full width with a checkpoint (``cli-rank``: the port's
+    ``cli.main`` in torchrun's environment, over NCCL); then this process,
+    with no torchrun and no group, resumes the run for one step through the
+    CLI. The restored state equals the saved one bit for bit. Returns the
+    launch counts of both runs."""
+    from hdenseunet_tpu_torch.train import checkpoint as C
+
+    BUILD.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_dp_", dir=BUILD))
+    try:
+        common = ["train", "--arch", "end2end", "--batch", "8", "--checkpoint-dir", str(root / "ck"),
+                  "--set", "model.compute_dtype", "bfloat16", "--set", "train.log_every_steps", "1",
+                  "--set", "train.save_path", str(root / "exp")]
+        counts = root / "launches.json"
+        env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+             __file__, "cli-rank", str(counts), *common, "--max-steps", "2"],
+            env=env, capture_output=True, text=True, timeout=DP_WALL,
+        )
+        seconds = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print(f"  | {line}")
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
+        child = json.loads(counts.read_text())
+        per_step = {"affine_relu": BSR_2D + REMAT_2D, "affine_relu_backward": BSR_2D,
+                    "wce_forward": 1, "wce_backward": 1}
+        assert (child["world"], child["backend"], child["step"]) == (1, "nccl", 2), child
+        assert child["launches"] == only(**{k: 2 * n for k, n in per_step.items()}), child["launches"]
+        saved = C.load(root / "ck" / "step-2.pt")
+        with cli_clock() as marks:
+            state, text = run_cli([*common, "--max-steps", "1", "--resume"])
+        resumed = read_counts()
+        assert "resumed from step 2" in text, text
+        (restore_s, _, restored), = marks["restores"]
+        assert payloads_equal(restored, saved), "the restored state differs from the saved one"
+        assert state.step == 3 and resumed == only(**per_step), (state.step, resumed)
+        print(f"cli_train_dp: torchrun, 1 rank over NCCL ({child['device']}): 2 end2end steps and a save in "
+              f"{seconds:.1f} s (the process's start included), launches {child['launches']}; resumed in one "
+              f"process with no group: restore {restore_s:.3f} s, bit-identical to the save [{card}]")
+        return {"cli_train_dp": child["launches"], "cli_train_dp_resume": resumed}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a card")
@@ -1607,6 +2082,8 @@ def main() -> None:
     paths["trace"] = trace_path(card, serve)
     k4 = check_k4(card, serve)
     bsr_per_forward = serve["bsr_per_forward"]
+    serve_ref = dict(labelmap=serve["labelmaps"][0], probs=serve["probs"], seconds=serve["seconds"],
+                     k1=serve["launches"]["affine_relu"] // len(serve["cases"]))
     del serve
     runs = {}
     for arch in ("end2end", "2d"):
@@ -1626,6 +2103,13 @@ def main() -> None:
     model_check(card)
     train_check(card)
     paths["parity"] = parity_path(card, bsr_per_forward)
+    one_steps = {arch: one_step(arch) for arch in ("end2end", "2d")}
+    paths.update(train_dp_w1(card, one_steps))
+    exact_steps = {arch: one_step(arch, dtype="float32") for arch in ("end2end", "2d")}
+    serve_ref["float32"] = serve_float32()
+    paths.update(dp_two_ranks(card, one_steps, exact_steps, serve_ref))
+    del one_steps, exact_steps, serve_ref
+    paths.update(cli_train_dp(card))
     kernels = []
     for name, source, replaces, numbers in (
         ("affine_relu", "fused_affine.cu", "ops/fused_affine.py:48", k1),
@@ -1664,4 +2148,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["dp-rank"]:
+        dp_rank(json.loads(sys.argv[2]))
+    elif sys.argv[1:2] == ["cli-rank"]:
+        cli_rank(sys.argv[2], sys.argv[3:])
+    else:
+        main()

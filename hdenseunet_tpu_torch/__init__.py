@@ -3,12 +3,17 @@
 The JAX package beside it is the reference: every module here mirrors the
 name of its JAX counterpart and is tested against it on the same weights and
 inputs. Ported so far: the serving path, the training path, the staged
-training workflow behind the command line (``python -m hdenseunet_tpu_torch``)
-and the measurement and audit tools.
+training workflow behind the command line (``python -m hdenseunet_tpu_torch``),
+the measurement and audit tools, and data parallelism over
+``torch.distributed`` (one process per card).
 
 cli      synth-data, preprocess, train, test, evaluate
 core     typed config, seeded initializers, the parameter bridge to and
-         from the JAX pytree
+         from the JAX pytree, the 'data' mesh and its batch helpers
+         (``core/mesh.py``)
+parallel the multi-process runtime (``parallel/multihost.py``): joins the
+         process group from torchrun's environment, splits the global
+         batch, places each rank's rows on its card
 ops      K1, the fused frozen BN∘Scale∘ReLU with its backward
          (csrc/fused_affine.cu), K2, the weighted cross-entropy forward and
          backward (csrc/wce.cu), and the nvcc/ctypes build of csrc/

@@ -5,6 +5,7 @@
     python -m hdenseunet_tpu_torch train --arch 2d --data prep --checkpoint-dir ck2d
     python -m hdenseunet_tpu_torch train --arch end2end --data prep --init-from ck2d --checkpoint-dir cke
     python -m hdenseunet_tpu_torch train --arch end2end --data prep --checkpoint-dir cke --resume
+    torchrun --nproc_per_node 8 -m hdenseunet_tpu_torch train --arch end2end --data prep --batch 8
     python -m hdenseunet_tpu_torch test --data tv --livermask tm --weights cke --save-path res
     python -m hdenseunet_tpu_torch test --data tv --livermask tm --weights cke --tiled 256
     python -m hdenseunet_tpu_torch evaluate --pred res --truth truth --num-volumes 1
@@ -13,7 +14,10 @@
 
 The flags are the JAX CLI's, with ``--set section.key value`` overrides of
 the typed Config, plus ``--device`` (``cuda`` unless asked otherwise) on
-``train``, ``test`` and ``export-weights``. ``--init-from`` and
+``train``, ``test`` and ``export-weights``. ``train`` joins a torchrun
+environment, one process per card: ``--batch`` stays the global batch, each
+process feeds its share and trains on its card (``cuda:LOCAL_RANK``), and
+only rank 0 prints. ``--init-from`` and
 ``--weights`` take a port checkpoint directory or an ``.npz`` of
 '{layer}/{leaf}' arrays, which ``convert-weights`` writes from a Keras HDF5
 file. ``convert-weights`` and ``export-weights`` need h5py; without it they
@@ -71,17 +75,27 @@ def cmd_synth_data(args):
 
 def cmd_train(args):
     """Train one stage; returns the final TrainState."""
+    from .core.mesh import make_mesh
     from .data.pipeline import input_pipeline
     from .data.preprocess import PreparedDataset
     from .data.sampler import CropSampler, synthetic_batches
+    from .parallel import multihost
     from .train import trainer
     from .weights import convert as wconv
 
+    # no-op unless a multi-process environment (torchrun) is configured
+    multihost.initialize(backend="gloo" if args.device == "cpu" else None)
+    device = multihost.local_device() if args.device == "cuda" else args.device
     cfg = _load_config(args.config, dict(args.set or []))
     cfg.train.arch = args.arch
     if args.batch:
         cfg.train.batch = args.batch
     mode = "2d" if args.arch == "2d" else "hybrid"
+    # each process samples only its rows of the global batch, with a
+    # process-disjoint random stream
+    feed_batch = multihost.local_batch_size(cfg.train.batch)
+    feed_seed = cfg.train.seed + multihost.process_index()
+    log = print if multihost.is_primary() else (lambda *_a, **_k: None)
 
     host = None
     if args.data:
@@ -91,20 +105,20 @@ def cmd_train(args):
             mode=mode,
             input_size=cfg.model.input_size,
             input_cols=cfg.model.input_cols,
-            seed=cfg.train.seed,
+            seed=feed_seed,
         )
         batches, host = input_pipeline(
-            sampler, cfg.train.batch, args.device,
+            sampler, feed_batch, device,
             host_depth=cfg.data.prefetch_depth, threads=cfg.data.crop_threads,
         )
     else:
-        print("no --data given: using synthetic batches (smoke mode)")
+        log("no --data given: using synthetic batches (smoke mode)")
         batches = synthetic_batches(
             mode=mode,
-            batch=cfg.train.batch,
+            batch=feed_batch,
             input_size=cfg.model.input_size,
             input_cols=cfg.model.input_cols,
-            seed=cfg.train.seed,
+            seed=feed_seed,
         )
 
     init_params = wconv.load_init_weights(args.init_from) if args.init_from else None
@@ -112,11 +126,13 @@ def cmd_train(args):
         return trainer.train(
             cfg,
             batches,
+            mesh=make_mesh(device),
             max_steps=args.max_steps,
             checkpoint_dir=args.checkpoint_dir,
             resume=args.resume,
             init_weights=init_params,
-            device=args.device,
+            log_fn=log,
+            device=device,
         )
     finally:
         if host is not None:

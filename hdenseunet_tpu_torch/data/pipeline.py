@@ -124,7 +124,10 @@ def device_prefetch(batch_iterator, device, *, depth: int = 2):
 def input_pipeline(sampler, batch: int, device, *, host_depth=4, device_depth=2, threads=None):
     """sampler.batches() -> threaded host prefetch -> device prefetch.
 
-    ``threads`` (default: the sampler config's ``crop_threads``) fans the
+    ``batch`` is what this process feeds: under data parallelism its rows of
+    the global batch (``parallel.multihost.local_batch_size``), to its own
+    card ``device``. ``threads`` (default: the sampler config's
+    ``crop_threads``) fans the
     per-sample crop work over a pool inside the producer. Returns
     ``(batches, host)``: close ``host`` when done with the batches.
     """

@@ -34,14 +34,23 @@ program k times back to back on a wire already on the device, and take the
 slope over k, so MFU is ``estimate_flops / compute_seconds /
 utils.flops.peak_flops_per_chip()``.
 
-Not ported yet: the ``mesh`` argument.
+Window parallelism (``mesh``, ``core/mesh.py``; the JAX package shards each
+window batch over its 'data' axis, device_pipeline.py:144-150, :1152-1156):
+on the dedup-2D and per-window paths, rank r of W scores windows
+[r*wb/W, (r+1)*wb/W) of every batch (in the dedup path, a run of its own
+with the 2D pass over just the stacks its windows need), accumulates them
+into its own score buffer and count, and one all-reduce per volume sums
+the buffers before the average. Every rank then holds the same scores and
+thresholds, packs and fetches the same labelmask.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..core.mesh import axis_group, axis_rank, axis_size, replicate
 from ..models.hybrid import HDenseUNet
 from ..models import layers as L
 from ..ops.cc import pack2bits
@@ -173,12 +182,15 @@ def crop_pack(final, x0: int, y0: int, z0: int, *, sx: int, sy: int, sz: int):
 
 
 class DeviceVolumeScorer:
-    """Scores whole volumes on one device with the hybrid network.
+    """Scores whole volumes on one device with the hybrid network, or on
+    every rank of ``mesh``, each on its own device (module docstring).
 
     Takes over ``model``: moves it to ``device``, casts its conv weights to
     ``compute_dtype`` (BN and Scale stay float32, as in the JAX package) and
     folds every frozen BN∘Scale pair once (``layers.freeze_bn_scale``), so
-    the model's weights must be final when the scorer is made.
+    the model's weights must be final when the scorer is made. Under a mesh
+    the weights are rank 0's (a broadcast), ``window_batch`` must be a
+    multiple of the ranks, and the shared-2D mode is refused.
     """
 
     _SPARSE_BUCKET = (64, 64, 16)  # bbox crop sizes round up to these
@@ -193,6 +205,7 @@ class DeviceVolumeScorer:
         compute_dtype: str = "float32",
         num_classes: int = 3,
         device="cuda",
+        mesh=None,
     ):
         if getattr(cfg, "wire_bits", 2) not in (2, 8):
             raise ValueError(f"wire_bits must be 2 or 8, got {cfg.wire_bits}")
@@ -200,9 +213,17 @@ class DeviceVolumeScorer:
         self.arch = arch
         self.num_classes = num_classes
         self.shared_2d = getattr(cfg, "shared_2d", False)
+        self.mesh = mesh
+        ranks = axis_size(mesh)
+        if ranks > 1 and self.shared_2d:
+            raise ValueError("the shared-2D mode takes no mesh")
+        if max(1, cfg.window_batch) % ranks:
+            raise ValueError(
+                f"window_batch {cfg.window_batch} is not a multiple of the mesh's {ranks} ranks"
+            )
         self.device = torch.device(device)
         self.dtype = getattr(torch, compute_dtype)
-        self.model = L.prepare_serving(model, self.device, self.dtype)
+        self.model = replicate(mesh, L.prepare_serving(model, self.device, self.dtype))
 
     def _bucketed(self, z: int) -> int:
         need = max(z, self.cfg.input_cols)
@@ -350,20 +371,29 @@ class DeviceVolumeScorer:
         exactly nothing to the JAX program's accumulators. Every gather index
         is clamped as ``jnp.take(mode='clip')`` and ``lax.dynamic_slice``
         clamp them: padding windows reach past the crop and must read finite
-        values.
+        values. Under a mesh each rank runs its block of every batch's
+        windows, and one all-reduce sums the score buffers and counts.
         """
         x, y, zp = vol_d.shape
-        score = torch.zeros((x, y, zp, self.num_classes), dtype=torch.float32, device=self.device)
-        count = torch.zeros((zp,), dtype=torch.float32, device=self.device)
+        c = self.num_classes
+        # score buffer and count in one allocation: one all-reduce sums both
+        acc = torch.zeros((x * y * zp * c + zp,), dtype=torch.float32, device=self.device)
+        score, count = acc[:-zp].view(x, y, zp, c), acc[-zp:]
+        ranks, rank = axis_size(self.mesh), axis_rank(self.mesh)
+        wb = p["wb"] // ranks  # this rank's windows of every batch
         if self.shared_2d:
             run = self._shared2d_batches(vol_d, p["z"])
         elif p["dedup"]:
-            run = self._dedup_batch(vol_d, p["wb"])
+            run = self._dedup_batch(vol_d, wb)  # a block of a run is a run
         else:
             run = lambda s_i: self.model(self._windows(vol_d, s_i), arch=self.arch)
         for s_i, w_i in zip(p["starts"].astype(np.int64), p["weights"]):
+            s_i, w_i = s_i[rank * wb : (rank + 1) * wb], w_i[rank * wb : (rank + 1) * wb]
             if w_i.any():
                 self._accumulate(score, count, torch.softmax(run(s_i).float(), dim=-1), s_i, w_i)
+        group = axis_group(self.mesh)
+        if group is not None:
+            dist.all_reduce(acc, group=group)
         return score / (count[None, None, :, None] + 1e-4)  # funcs.py:48
 
     def _dedup_batch(self, vol_d, wb: int):

@@ -27,9 +27,12 @@ from .sliding_window import WindowPredictor
 
 
 class VolumePredictor:
-    """model + config -> callable volume segmenter on ``device``."""
+    """model + config -> callable volume segmenter on ``device``. With
+    ``mesh`` every rank of it runs the same calls on the same volume, scores
+    its share of the windows on its own ``device``, and returns the same
+    labelmap (predictor.py:24-48)."""
 
-    def __init__(self, model, cfg, *, arch: str = "end2end", device="cuda"):
+    def __init__(self, model, cfg, *, arch: str = "end2end", device="cuda", mesh=None):
         self.cfg = cfg
         scorer = DeviceVolumeScorer if cfg.infer.device_resident else WindowPredictor
         self.windows = scorer(
@@ -39,6 +42,7 @@ class VolumePredictor:
             compute_dtype=cfg.model.compute_dtype,
             num_classes=cfg.model.num_classes,
             device=device,
+            mesh=mesh,
         )
 
     def segment(self, vol: np.ndarray, ext_liver_mask: np.ndarray) -> np.ndarray:

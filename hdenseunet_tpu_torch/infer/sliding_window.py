@@ -8,6 +8,13 @@ accumulated on the host in float32 numpy with its multiplicity, as the
 reference averages overlapping windows after dropping each window's two
 edge slices.
 
+Under a data-parallel ``mesh`` (the JAX package shards each window batch
+over its 'data' axis, sliding_window.py:76-99) rank r of W scores windows
+[r*wb/W, (r+1)*wb/W) of every batch, and one all-reduce of a zeroed batch
+buffer, each rank's block filled in, gives every rank the whole batch's
+probabilities, as JAX's fetch of the sharded result does; the host
+accumulation is then the single process's.
+
 ``window_starts`` is pure numpy, copied from the JAX package and pinned to
 the original by tests; the device-resident scorer imports it from here.
 """
@@ -15,7 +22,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..core.mesh import axis_group, axis_rank, axis_size, replicate
 from ..models import layers as L
 
 
@@ -45,10 +54,13 @@ def _window_probs(model, batch_vol, *, arch: str):
 
 
 class WindowPredictor:
-    """Window scorer for one model and config on ``device``.
+    """Window scorer for one model and config on ``device``, or on every
+    rank of ``mesh`` (module docstring).
 
     Takes over ``model`` as :class:`~.device_pipeline.DeviceVolumeScorer`
-    does (``layers.prepare_serving``), so its weights must be final."""
+    does (``layers.prepare_serving``), so its weights must be final; under
+    a mesh they are rank 0's, and ``window_batch`` must be a multiple of
+    the ranks."""
 
     def __init__(
         self,
@@ -59,17 +71,36 @@ class WindowPredictor:
         compute_dtype: str = "float32",
         num_classes: int = 3,
         device="cuda",
+        mesh=None,
     ):
+        if max(1, cfg.window_batch) % axis_size(mesh):
+            raise ValueError(
+                f"window_batch {cfg.window_batch} is not a multiple of the mesh's "
+                f"{axis_size(mesh)} ranks"
+            )
         self.cfg = cfg
         self.arch = arch
         self.num_classes = num_classes
+        self.mesh = mesh
         self.device = torch.device(device)
         self.dtype = getattr(torch, compute_dtype)
-        self.model = L.prepare_serving(model, self.device, self.dtype)
+        self.model = replicate(mesh, L.prepare_serving(model, self.device, self.dtype))
 
+    @torch.inference_mode()
     def _score_batch(self, wins: np.ndarray) -> np.ndarray:
-        batch = torch.from_numpy(wins).to(self.device).to(self.dtype)
-        return _window_probs(self.model, batch, arch=self.arch).cpu().numpy()
+        """This rank's block of the batch's windows, scored; under a mesh the
+        other ranks' blocks arrive through one all-reduce."""
+        n = len(wins) // axis_size(self.mesh)
+        lo = axis_rank(self.mesh) * n
+        batch = torch.from_numpy(wins[lo : lo + n]).to(self.device).to(self.dtype)
+        probs = _window_probs(self.model, batch, arch=self.arch)
+        group = axis_group(self.mesh)
+        if group is None:
+            return probs.cpu().numpy()
+        whole = probs.new_zeros((len(wins), *probs.shape[1:]))
+        whole[lo : lo + n] = probs
+        dist.all_reduce(whole, group=group)
+        return whole.cpu().numpy()
 
     def predict_volume(self, vol: np.ndarray, mini_z: int, maxi_z: int):
         """vol: (X, Y, Z) mean-subtracted CT -> (liver_prob, tumor_prob) (X,Y,Z).

@@ -16,7 +16,10 @@ its moving statistics, dropout is the identity), or a :class:`Ctx` for
 training (the JAX ``Ctx`` under ``train=True``): live BatchNorms normalise
 with batch statistics and write their new moving statistics into
 ``ctx.new_stats``, dropout draws from ``ctx.generator``, and ``ctx.remat``
-checkpoints every conv block (:func:`maybe_remat`).
+checkpoints every conv block (:func:`maybe_remat`). Under a data-parallel
+``ctx.mesh`` of several ranks (``core/mesh.py``) each rank holds its rows of
+the global batch: live statistics are the global batch's, and each rank's
+dropout mask is its rows of the mask one process would draw.
 
 Inside :func:`count_flops` every :class:`Conv` forward adds its FLOPs to
 the open counter, the hook ``utils/flops.py`` counts the real graph with.
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core.mesh import all_reduce_sum, axis_group, axis_rank, axis_size
 from ..ops.fused_affine import AffineReLU, fold_bn_scale
 
 _FORMATS = {4: torch.channels_last, 5: torch.channels_last_3d}
@@ -54,17 +58,25 @@ class Ctx:
     the buffers after the optimizer step. Dropout draws from ``generator``,
     a generator on ``device`` seeded from ``seed`` when first used.
     ``remat_policy`` is TrainConfig's: 'full' or 'convs' (:func:`maybe_remat`).
+    ``mesh`` is the data-parallel mesh the batch is split over, or None;
+    ``group`` and ``shard`` are set only when it has several ranks: the
+    process group that live statistics reduce over, and (rank, ranks) for
+    dropout.
     """
 
     def __init__(
         self, seed: int, *, device, remat: bool = False, remat_policy: str = "full",
-        new_stats=None,
+        new_stats=None, mesh=None,
     ):
         self.seed = int(seed)
         self.device = torch.device(device)
         self.remat = remat
         self.remat_policy = remat_policy
         self.new_stats = {} if new_stats is None else new_stats
+        self.mesh = mesh
+        several = axis_size(mesh) > 1
+        self.group = axis_group(mesh) if several else None
+        self.shard = (axis_rank(mesh), axis_size(mesh)) if several else None
         self._generator = None
         self._children = 0
 
@@ -103,7 +115,7 @@ def maybe_remat(ctx: Ctx | None, fn, x):
     seed = ctx.child_seed()
 
     def run(x_):
-        return fn(Ctx(seed, device=ctx.device, new_stats=ctx.new_stats), x_)
+        return fn(Ctx(seed, device=ctx.device, new_stats=ctx.new_stats, mesh=ctx.mesh), x_)
 
     if not ctx.remat or not torch.is_grad_enabled():
         return run(x)
@@ -251,9 +263,10 @@ class BatchNorm(nn.Module):
     With a training ``ctx`` and ``frozen`` False it normalises with the
     batch's float32 mean and biased variance over every axis but channels,
     and writes ``momentum*moving + (1-momentum)*batch`` into
-    ``ctx.new_stats``. Otherwise (inference, or the hybrid's frozen 2D
-    branch) it uses the moving statistics. The affine is folded in float32
-    and applied in x's dtype either way.
+    ``ctx.new_stats``. Under a mesh of several ranks the batch is the
+    global one (:func:`global_moments`). Otherwise (inference, or the
+    hybrid's frozen 2D branch) it uses the moving statistics. The affine is
+    folded in float32 and applied in x's dtype either way.
     """
 
     def __init__(self, c, *, eps=1e-3, momentum=0.99, device=None):
@@ -272,7 +285,10 @@ class BatchNorm(nn.Module):
     def forward(self, x, ctx: Ctx | None = None, *, frozen: bool = False):
         if ctx is not None and not frozen:
             dims = [d for d in range(x.dim()) if d != 1]
-            var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+            if ctx.group is None:
+                var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+            else:
+                mean, var = global_moments(x.float(), dims, ctx.group)
             m = self.momentum
             ctx.new_stats[self] = (
                 m * self.moving_mean + (1.0 - m) * mean.detach(),
@@ -286,6 +302,23 @@ class BatchNorm(nn.Module):
         shape = [1] * x.dim()
         shape[1] = -1
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+
+def global_moments(x, dims, group):
+    """Per-channel mean and biased variance of ``x`` over ``dims`` of every
+    rank's rows together, in the two passes of ``jnp.var`` on a sharded
+    batch (layers.py:166-174): one all-reduce of the sums and the element
+    count, then one of the squared deviations from the global mean. Both
+    are differentiable, so gradients reach every rank's rows through the
+    statistics as they do in JAX."""
+    shape = [1] * x.dim()
+    shape[1] = -1
+    n = x.numel() // x.shape[1]
+    sums = all_reduce_sum(torch.cat([x.sum(dims), x.new_full((1,), float(n))]), group)
+    count = sums[-1]
+    mean = sums[:-1] / count
+    var = all_reduce_sum(((x - mean.view(shape)) ** 2).sum(dims), group) / count
+    return mean, var
 
 
 class Scale(nn.Module):
@@ -403,14 +436,29 @@ def upsample_nearest(x, factors):
     return y.movedim(-1, 1)
 
 
-def dropout(x, rate: float, generator: torch.Generator | None = None):
+def dropout(x, rate: float, generator: torch.Generator | None = None, *, shard=None):
     """Inverted dropout (Keras core.py Dropout): each element is kept with
     probability 1 - rate and scaled by 1 / (1 - rate). Active only in
-    training, i.e. given a generator (on x's device); else the identity."""
+    training, i.e. given a generator (on x's device); else the identity.
+
+    ``shard`` (rank, ranks): x is rank's block of rows of a batch split over
+    ``ranks`` processes. The mask is then drawn for the whole batch, in the
+    memory layout x has, and the rank keeps its rows: the mask one process
+    would draw from the same generator, at ``ranks`` times the draws."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    if shard is None:
+        mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    else:
+        rank, ranks = shard
+        n = x.shape[0]
+        if x.stride(0) != x[0].numel():
+            raise ValueError("dropout over a split batch needs the batch axis outermost in memory")
+        whole = torch.empty_strided(
+            (n * ranks, *x.shape[1:]), x.stride(), dtype=x.dtype, device=x.device
+        ).bernoulli_(keep, generator=generator)
+        mask = whole[rank * n : (rank + 1) * n]
     return x / keep * mask
 
 
@@ -419,4 +467,6 @@ def maybe_dropout(ctx: Ctx | None, x, rate: float):
     at inference or at rate 0 (no generator is made for it)."""
     if ctx is None or rate <= 0.0:
         return x
-    return dropout(x, rate, ctx.generator)
+    if ctx.shard is None:
+        return dropout(x, rate, ctx.generator)
+    return dropout(x, rate, ctx.generator, shard=ctx.shard)

@@ -17,6 +17,12 @@ of ``csrc/wce.cu`` on a CUDA tensor, or raise; on a CPU tensor they run the
 plain PyTorch versions ``weighted_ce_reference`` and
 ``weighted_ce_backward_reference``. There is no fallback from a kernel to its
 plain version.
+
+Over a batch split across ranks (``group``), the loss is the global batch's:
+each rank's forward gives its rows' (loss, sum of the mask), one all-reduce
+sums (loss * sum, sum) over the ranks, and the backward takes the global sum
+of the mask, so each rank's dlogits is its rows' share of the global loss's
+gradient. The kernels are the same.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import ctypes
 import functools
 
 import torch
+import torch.distributed as dist
 
 from . import build
 
@@ -151,23 +158,30 @@ wce_backward.launches = 0
 class WeightedCE(torch.autograd.Function):
     """The custom VJP ``weighted_ce`` of wce.py:108-145: forward
     :func:`wce_forward`, backward :func:`wce_backward`; labels, mask and
-    weights take no gradient."""
+    weights take no gradient. With a process ``group`` the loss and the sum
+    of the mask are the global batch's (module docstring)."""
 
     @staticmethod
-    def forward(ctx, logits2, labels1, mask1, weights):
+    def forward(ctx, logits2, labels1, mask1, weights, group=None):
         loss, cnt = wce_forward(logits2, labels1, mask1, weights)
+        if group is not None:
+            sums = torch.stack([loss * cnt, cnt])
+            dist.all_reduce(sums, group=group)
+            loss, cnt = sums[0] / sums[1], sums[1]
         ctx.save_for_backward(logits2, labels1, mask1, weights, cnt)
         return loss
 
     @staticmethod
     def backward(ctx, g):
         logits2, labels1, mask1, weights, cnt = ctx.saved_tensors
-        return wce_backward(logits2, labels1, mask1, weights, cnt, g), None, None, None
+        return wce_backward(logits2, labels1, mask1, weights, cnt, g), None, None, None, None
 
 
-def weighted_ce(logits2, labels1, mask1, weights):
+def weighted_ce(logits2, labels1, mask1, weights, group=None):
     """Masked weighted CE over flat (N, C) logits; differentiable in the
     logits. weights: a sequence of C floats or a float32 tensor (pass a
-    tensor already on the logits' device to spare a copy per call)."""
+    tensor already on the logits' device to spare a copy per call).
+    ``group``: the process group whose ranks hold the other rows of the
+    batch, or None."""
     weights = torch.as_tensor(weights, dtype=torch.float32, device=logits2.device)
-    return WeightedCE.apply(logits2, labels1, mask1, weights)
+    return WeightedCE.apply(logits2, labels1, mask1, weights, group)

@@ -18,6 +18,12 @@ in ``step-<N>.json``. A fresh :class:`Checkpointer` over the same directory
 reads that loss back. Every file is written under a temporary name and
 renamed into place, so a save cut short never leaves half a file as the
 newest step. Saves are synchronous.
+
+Under a data-parallel ``mesh`` every rank holds the same state: rank 0
+writes and the others wait for it at a barrier, and every rank restores the
+same file. The format does not depend on the number of ranks, so a save
+made by two ranks resumes in one process bit for bit, and the other way
+round.
 """
 from __future__ import annotations
 
@@ -29,8 +35,10 @@ import shutil
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from ..core import params as P
+from ..core.mesh import axis_group, axis_rank
 
 _BEST_SUBDIR = "best"
 _STEP_FILE = re.compile(r"step-(\d+)\.pt")
@@ -122,8 +130,9 @@ def _replace_into(directory: Path, name: str, write) -> Path:
 
 
 class Checkpointer:
-    def __init__(self, directory, *, max_to_keep: int = 5, keep_best: bool = True):
+    def __init__(self, directory, *, max_to_keep: int = 5, keep_best: bool = True, mesh=None):
         self.dir = Path(directory).absolute()
+        self.mesh = mesh
         self.dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.best_dir = self.dir / _BEST_SUBDIR if keep_best else None
@@ -144,8 +153,15 @@ class Checkpointer:
         """Save ``train_state`` at ``step``; if ``metric`` (the monitored
         loss) improves on the best seen, it also fills the best slot. A step
         at or before the newest saved one is not saved again (orbax's
-        ``should_save``)."""
-        step = int(step)
+        ``should_save``). Under a mesh rank 0 writes, and every rank returns
+        once the save is complete."""
+        if axis_rank(self.mesh) == 0:
+            self._save(int(step), train_state, metric)
+        group = axis_group(self.mesh)
+        if group is not None:
+            dist.barrier(group=group)
+
+    def _save(self, step: int, train_state, metric: float | None):
         steps = self.all_steps()
         if steps and steps[-1] >= step:
             return

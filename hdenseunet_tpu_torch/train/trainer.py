@@ -1,5 +1,5 @@
 """Training steps and the host training loop (counterpart of
-hdenseunet_tpu/train/trainer.py) on one device.
+hdenseunet_tpu/train/trainer.py), data-parallel over the 'data' mesh.
 
 Stages (reference recipes):
   '2d'      — train_2ddense.py: DenseUNet-2D on (B,H,W,3) slabs, per-center-slice
@@ -14,6 +14,19 @@ merge, all queued on the device without a host sync; ``train`` syncs only
 where it drains the losses, as the JAX loop does. The model, the optimizer
 and the moving statistics are updated in place. ``train`` also takes the
 cross-stage warm start, checkpoints (``train/checkpoint.py``) and resume.
+
+Data parallelism (``mesh``, ``core/mesh.py``): one process per card, each
+feeding its rows of the global batch. Live BatchNorm statistics and the
+loss are the global batch's (``models/layers.py``, ``ops/wce.py``), so
+each rank's backward gives its rows' share of the global loss's gradient;
+after ``backward()`` one all-reduce of one flat buffer sums the shares, and
+every rank takes the same SGD step. This is not DDP: the reduction does not
+overlap the backward, but its one collective comes after every collective
+of the backward (the live statistics' reductions, run again by remat), in
+the same order on every rank, the frozen and the unread parameters need no
+special case, and the model stays a plain module for the scorer, the
+checkpoints and the parity tools. The result does not depend on the number
+of ranks.
 """
 from __future__ import annotations
 
@@ -26,8 +39,12 @@ import torch
 
 from ..core.config import Config
 from ..core.initializers import init_model
+from ..core.mesh import (
+    all_reduce_, axis_group, axis_rank, axis_size, check_batch_divisible, make_mesh, replicate,
+)
 from ..models import denseunet2d, hybrid
 from ..models import layers as L
+from ..parallel.multihost import put_batch
 from ..utils.guards import NaNGuard
 from ..weights.convert import match_to_model
 from . import checkpoint as ckpt_lib
@@ -79,47 +96,45 @@ def create_train_state(cfg: Config, arch: str | None = None, *, device="cuda", s
     return TrainState(model, opt, labels, arch, gen, weights)
 
 
-def to_device(batch: dict, device: torch.device) -> dict:
-    """numpy batch -> tensors on device; pinned and asynchronous to a card."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if k == "label":
-            t = t.to(torch.int32)
-        if device.type == "cuda":
-            t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=True)
-    return out
-
-
-def forward_loss(model, batch: dict, ctx: L.Ctx | None, *, arch: str, cfg: Config, weights):
+def forward_loss(
+    model, batch: dict, ctx: L.Ctx | None, *, arch: str, cfg: Config, weights, mesh=None
+):
     """The stage's loss on a device batch (trainer.py:84-125); ``ctx`` None
-    is the eval forward (moving statistics, no dropout)."""
+    is the eval forward (moving statistics, no dropout). Under ``mesh`` the
+    batch is this rank's rows and the loss the global batch's."""
     image = batch["image"].to(getattr(torch, cfg.model.compute_dtype))
     if arch == "2d":
         _, logits = model(image, ctx, bn_frozen=False, decoder_dropout=0.3)
-        return weighted_crossentropy_2d(logits, batch["label"], weights)
+        return weighted_crossentropy_2d(logits, batch["label"], weights, mesh)
     logits = model(image, ctx, arch=arch)
     if cfg.train.mask_boundary_slices:
-        return weighted_crossentropy_hybrid(logits, batch["label"], weights)
+        return weighted_crossentropy_hybrid(logits, batch["label"], weights, mesh)
     return weighted_crossentropy_2d(
-        logits.reshape(-1, logits.shape[-1]), batch["label"].reshape(-1), weights
+        logits.reshape(-1, logits.shape[-1]), batch["label"].reshape(-1), weights, mesh
     )
 
 
-def train_step(state: TrainState, batch: dict, cfg: Config) -> torch.Tensor:
+def train_step(state: TrainState, batch: dict, cfg: Config, mesh=None) -> torch.Tensor:
     """One optimizer step on a host (numpy) or device batch; returns the
     loss as a device scalar without waiting for it. Gradients stay in the
-    parameters' ``.grad`` until the next step."""
+    parameters' ``.grad`` until the next step. Under ``mesh`` the batch is
+    this rank's rows of the global batch (trainer.py:128-155): the loss,
+    the live statistics and the summed gradients are the global batch's,
+    the same on every rank."""
     dev = state.device
-    batch = to_device(batch, dev) if isinstance(batch["image"], np.ndarray) else batch
+    batch = put_batch(batch, dev) if isinstance(batch["image"], np.ndarray) else batch
     seed = int(torch.randint(0, 2**62, (1,), generator=state.generator))
-    ctx = L.Ctx(seed, device=dev, remat=cfg.train.remat, remat_policy=cfg.train.remat_policy)
+    ctx = L.Ctx(
+        seed, device=dev, remat=cfg.train.remat, remat_policy=cfg.train.remat_policy, mesh=mesh
+    )
     state.optimizer.zero_grad(set_to_none=True)
     loss = forward_loss(
-        state.model, batch, ctx, arch=state.arch, cfg=cfg, weights=state.loss_weights
+        state.model, batch, ctx, arch=state.arch, cfg=cfg, weights=state.loss_weights, mesh=mesh
     )
     loss.backward()
+    group = axis_group(mesh)
+    if group is not None:  # one bucket: every rank's share of the gradient, summed
+        all_reduce_([p.grad for p in state.model.parameters() if p.grad is not None], group)
     state.optimizer.step()
     with torch.no_grad():  # BN-state merge (module.py:237-242), once per step
         for bn, (mean, var) in ctx.new_stats.items():
@@ -131,11 +146,12 @@ def train_step(state: TrainState, batch: dict, cfg: Config) -> torch.Tensor:
 
 
 @torch.no_grad()
-def eval_step(state: TrainState, batch: dict, cfg: Config) -> torch.Tensor:
-    """Forward-only loss: no dropout, moving statistics (trainer.py:199-211)."""
-    batch = to_device(batch, state.device) if isinstance(batch["image"], np.ndarray) else batch
+def eval_step(state: TrainState, batch: dict, cfg: Config, mesh=None) -> torch.Tensor:
+    """Forward-only loss: no dropout, moving statistics (trainer.py:199-211);
+    under ``mesh`` the global batch's loss from this rank's rows."""
+    batch = put_batch(batch, state.device) if isinstance(batch["image"], np.ndarray) else batch
     return forward_loss(
-        state.model, batch, None, arch=state.arch, cfg=cfg, weights=state.loss_weights
+        state.model, batch, None, arch=state.arch, cfg=cfg, weights=state.loss_weights, mesh=mesh
     )
 
 
@@ -144,13 +160,21 @@ class MetricsLogger:
 
     Writes ``history/lossepoch.txt`` like the reference's modified
     ProgbarLogger (Keras-2.0.8/keras/callbacks.py:311-314) and
-    ``history/lossbatch.txt``, plus slices/sec on the one device.
+    ``history/lossbatch.txt``, plus slices/sec/chip: ``world_size`` ranks
+    share the global batch (one card each). Only the ``primary`` rank
+    writes the files.
     """
 
-    def __init__(self, save_path: str, slices_per_sample: int = 1):
+    def __init__(
+        self, save_path: str, slices_per_sample: int = 1, *, world_size: int = 1,
+        primary: bool = True,
+    ):
         self.dir = Path(save_path) / "history"
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.primary = primary
+        if primary:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.slices_per_sample = slices_per_sample
+        self.world_size = world_size
         self._epoch_losses: list[float] = []
         self._last_epoch_loss: float | None = None
         self._t0 = time.perf_counter()
@@ -165,8 +189,9 @@ class MetricsLogger:
     def log_step(self, loss: float, batch_size: int):
         self._epoch_losses.append(float(loss))
         self._samples += batch_size
-        with open(self.dir / "lossbatch.txt", "a") as f:
-            f.write(f"{float(loss):.6f}\n")
+        if self.primary:
+            with open(self.dir / "lossbatch.txt", "a") as f:
+                f.write(f"{float(loss):.6f}\n")
 
     def end_epoch(self) -> dict:
         dt = max(time.perf_counter() - self._t0, 1e-9)
@@ -176,10 +201,11 @@ class MetricsLogger:
         stats = {
             "loss": self._last_epoch_loss if self._last_epoch_loss is not None else float("nan"),
             "samples_per_sec": self._samples / dt,
-            "slices_per_sec_per_chip": self._samples * self.slices_per_sample / dt,
+            "slices_per_sec_per_chip": self._samples * self.slices_per_sample / dt / self.world_size,
         }
-        with open(self.dir / "lossepoch.txt", "a") as f:
-            f.write(f"{stats['loss']:.6f}\n")
+        if self.primary:
+            with open(self.dir / "lossepoch.txt", "a") as f:
+                f.write(f"{stats['loss']:.6f}\n")
         self._epoch_losses.clear()
         self._t0 = time.perf_counter()
         self._samples = 0
@@ -190,6 +216,7 @@ def train(
     cfg: Config,
     batch_iterator,
     *,
+    mesh=None,
     max_steps: int | None = None,
     checkpoint_dir: str | None = None,
     resume: bool = False,
@@ -197,16 +224,25 @@ def train(
     log_fn=print,
     device="cuda",
 ):
-    """Host training loop on one device (trainer.py:265-406): host or
-    device batches -> device steps; losses drain (sync, NaN check, log) at
+    """Host training loop (trainer.py:265-406): host or device batches ->
+    device steps; losses drain (sync, NaN check, log) at
     ``log_every_steps``, at each epoch end, before every checkpoint save and
     at the end of the run. ``init_weights`` ({layer: {leaf: array}}) seeds
     the model by layer name; with ``checkpoint_dir`` the state is saved
     every ``checkpoint_every_steps`` and at the end, and ``resume`` first
     restores the newest save there. Returns the final :class:`TrainState`.
+
+    ``mesh`` (default :func:`~..core.mesh.make_mesh`: every rank of the
+    process group, or this process alone): ``batch_iterator`` yields this
+    rank's rows, ``cfg.train.batch / ranks`` of them, of each global batch
+    of ``cfg.train.batch``; ``device`` is this rank's card. The state starts
+    as rank 0's (a broadcast after the warm start or the restore), rank 0
+    writes the checkpoints and the history, and the losses are global.
     """
     if cfg.train.steps_per_dispatch > 1:
         raise NotImplementedError("steps_per_dispatch > 1 is a TPU dispatch lever, not ported")
+    mesh = make_mesh(device) if mesh is None else mesh
+    check_batch_divisible(cfg.train.batch, mesh)
     arch = cfg.train.arch
     state = create_train_state(cfg, arch, device=device)
     if init_weights is not None:
@@ -220,11 +256,15 @@ def train(
         )
     ckpt = None
     if checkpoint_dir is not None:
-        ckpt = ckpt_lib.Checkpointer(checkpoint_dir)
+        ckpt = ckpt_lib.Checkpointer(checkpoint_dir, mesh=mesh)
         if resume and ckpt.restore_latest(state) is not None:
             log_fn(f"resumed from step {state.step}")
+    replicate(mesh, state.model)
     slices = cfg.model.input_cols if arch != "2d" else 1
-    metrics = MetricsLogger(cfg.train.save_path, slices_per_sample=slices)
+    metrics = MetricsLogger(
+        cfg.train.save_path, slices_per_sample=slices, world_size=axis_size(mesh),
+        primary=axis_rank(mesh) == 0,
+    )
     nan_guard = NaNGuard()
     steps_per_epoch = cfg.train.resolved_steps_per_epoch()
     total = max_steps if max_steps is not None else steps_per_epoch * cfg.train.epochs
@@ -243,7 +283,7 @@ def train(
     for batch in batch_iterator:
         if step >= total:
             break
-        pending.append(train_step(state, batch, cfg))
+        pending.append(train_step(state, batch, cfg, mesh))
         prev, step = step, step + 1
 
         def crossed(n: int) -> bool:

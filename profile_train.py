@@ -49,7 +49,8 @@ WRAPPERS = ("AffineReLU", "AffineReLUBackward", "WeightedCE", "WeightedCEBackwar
 def make_state(arch: str):
     from hdenseunet_tpu_torch.core.config import Config
     from hdenseunet_tpu_torch.data.sampler import synthetic_batches
-    from hdenseunet_tpu_torch.train.trainer import to_device, create_train_state
+    from hdenseunet_tpu_torch.parallel.multihost import put_batch
+    from hdenseunet_tpu_torch.train.trainer import create_train_state
 
     cfg = Config()
     cfg.model.compute_dtype = "bfloat16"
@@ -59,7 +60,7 @@ def make_state(arch: str):
         mode="2d" if arch == "2d" else "hybrid", batch=8, input_size=cfg.model.input_size,
         input_cols=cfg.model.input_cols, seed=SEED,
     )
-    batch = to_device(next(gen), torch.device("cuda"))  # one batch, already on the card
+    batch = put_batch(next(gen), "cuda")  # one batch, already on the card
     return state, cfg, batch
 
 
