@@ -45,8 +45,13 @@ failure exits non-zero):
    - K4 (cc_label 26 and 6, largest_component, fill_holes, compose_prep,
      compose_finish) against its plain versions on the card and
      native/postprocess.cpp at 512x512x112 (random masks at four densities,
-     an ellipsoid liver with a tumour) and on the first volume's real
-     thresholded labelmask, with times, bounds and kernels per call;
+     an ellipsoid liver with a tumour), on the brick-boundary cases of
+     ops/cc_cases.py (at two bricks an axis and at shapes one voxel off a
+     brick multiple, also against the plain versions; at 512x512x112
+     against native/postprocess.cpp and scipy's labels) and on the first
+     volume's real thresholded labelmask, every kernel twice; times warm and
+     with the L2 flushed (K4a-c also at random p=0.3), bounds and kernels
+     per call;
 5. the training path: ``train`` for 4 end2end steps at full width (global
    batch 8 of 224x224x8 sub-volumes, bfloat16, remat), then 4 steps of the
    2D stage at bench.py's configuration (batch 8 of 224x224 slabs; each
@@ -169,9 +174,12 @@ BUILD = Path(__file__).resolve().parent / "build"
 K12_NAMES = ("affine_relu", "affine_relu_backward", "wce_forward", "wce_backward")
 K4_NAMES = ("cc_label", "largest_component", "fill_holes", "compose_prep", "compose_finish")
 K4_SHAPE = (512, 512, 112)  # LiTS in-plane size, 112 slices
-# K4 launches per served volume as compose_labels makes them: 2 largest
-# components and 3 hole fills, each labelling once, one prep and one finish
+# K4 wrapper calls per served volume as compose_labels makes them: 2 largest
+# components and 3 hole fills, each counted once as a labelling (its brick
+# and merge kernels are cc_label's), one prep and one finish
 K4_PER_VOLUME = dict(cc_label=5, largest_component=2, fill_holes=3, compose_prep=1, compose_finish=1)
+# kernels per wrapper call: brick, merge, (roots,) finish; prep and finish one each
+K4_KERNELS = dict(cc_label=3, largest_component=4, fill_holes=4, compose_prep=1, compose_finish=1)
 TILE = 256  # the tiled scorer's in-plane window (serve_tiled, cli_test_tiled)
 # The host loop against the per-window device path, when not byte-identical:
 # both run the same windows in bfloat16 through the same kernels and average
@@ -865,16 +873,49 @@ def compose_inputs(liver, tumor, ext, pack_z: int):
     return torch.from_numpy(packed).cuda(), torch.from_numpy(ext_bits).cuda()
 
 
+def k4_agree(label: str, m, *, plain: bool) -> int:
+    """cc_label (26, 6), largest_component and fill_holes on the card for
+    bool mask m, each twice (the same bits), against native/postprocess.cpp
+    (scipy's labels for cc_label) and, with ``plain``, the plain versions on
+    the card. Returns the mask's 26-connected component count."""
+    from hdenseunet_tpu_torch import native
+    from hdenseunet_tpu_torch.ops import cc
+    from hdenseunet_tpu_torch.ops.cc_cases import scipy_min_labels
+
+    t = torch.from_numpy(np.ascontiguousarray(m)).cuda()
+    for conn in (26, 6):
+        got = cc.cc_label(t, conn)
+        assert torch.equal(got, cc.cc_label(t, conn)), f"cc_label {conn} repeat differs at {label}"
+        if plain:
+            assert torch.equal(got, cc.cc_label_reference(t, conn)), f"cc_label {conn} at {label}"
+        else:
+            assert np.array_equal(got.cpu().numpy(), scipy_min_labels(m, conn)), f"cc_label {conn} at {label}"
+    largest, fill = cc.largest_component(t), cc.fill_holes(t)
+    assert torch.equal(largest, cc.largest_component(t)), f"largest repeat differs at {label}"
+    assert torch.equal(fill, cc.fill_holes(t)), f"fill repeat differs at {label}"
+    if plain:
+        assert torch.equal(largest, cc.largest_component_reference(t)), f"largest at {label}"
+        assert torch.equal(fill, cc.fill_holes_reference(t)), f"fill at {label}"
+    assert np.array_equal(largest.cpu().numpy(), native.pp_largest_component(m)), f"largest vs native at {label}"
+    assert np.array_equal(fill.cpu().numpy(), native.pp_fill_holes(m)), f"fill vs native at {label}"
+    return int((cc.cc_label(t, 26).view(-1)[t.view(-1)].unique()).numel())
+
+
 def check_k4(card: str, serve: dict) -> dict:
     """K4a-d on the card against their plain versions on the card and the
     host's native/postprocess.cpp, at 512x512x112 (random masks at four
-    densities, an ellipsoid liver with a tumour) and on phase 4's real
-    thresholded labelmask; every kernel twice, the same bits both times.
-    Times at the ellipsoid case. Returns the JSON numbers per kernel."""
+    densities, an ellipsoid liver with a tumour), on the brick-boundary
+    cases (ops/cc_cases.py: at two bricks an axis and at shapes one voxel
+    off a brick multiple against the plain versions too; at 512x512x112
+    against native/postprocess.cpp and scipy's labels, since the plain
+    propagation is slow on a long snake) and on phase 4's real thresholded
+    labelmask; every kernel twice, the same bits both times. Times at the
+    ellipsoid case (K4a-c also at random p=0.3), warm and with the L2
+    flushed. Returns the JSON numbers per kernel."""
     from hdenseunet_tpu_torch import native
     from hdenseunet_tpu_torch.infer import device_postprocess as D, postprocess
     from hdenseunet_tpu_torch.infer.device_pipeline import pack_labels
-    from hdenseunet_tpu_torch.ops import cc
+    from hdenseunet_tpu_torch.ops import cc, cc_cases
 
     assert native.pp_available(), "the host oracle native/postprocess.cpp did not build"
     rng = np.random.default_rng(SEED + 6)
@@ -883,22 +924,28 @@ def check_k4(card: str, serve: dict) -> dict:
     masks["ellipsoid liver"] = liver | tumor
     mismatches = 0
     for label, m in masks.items():
-        t = torch.from_numpy(m).cuda()
         t0 = time.perf_counter()
-        for conn in (26, 6):
-            got = cc.cc_label(t, conn)
-            assert torch.equal(got, cc.cc_label(t, conn)), f"cc_label repeat differs at {label}"
-            assert torch.equal(got, cc.cc_label_reference(t, conn)), f"cc_label {conn} at {label}"
-        largest, fill = cc.largest_component(t), cc.fill_holes(t)
-        assert torch.equal(largest, cc.largest_component(t)) and torch.equal(fill, cc.fill_holes(t))
-        assert torch.equal(largest, cc.largest_component_reference(t)), f"largest at {label}"
-        assert torch.equal(fill, cc.fill_holes_reference(t)), f"fill at {label}"
-        assert np.array_equal(largest.cpu().numpy(), native.pp_largest_component(m)), label
-        assert np.array_equal(fill.cpu().numpy(), native.pp_fill_holes(m)), label
-        n_cc = int((cc.cc_label(t, 26).view(-1)[t.view(-1)].unique()).numel())
+        n_cc = k4_agree(label, m, plain=True)
         print(f"K4 {label} {K4_SHAPE}: {n_cc} components; cc_label (26, 6), largest_component, "
               f"fill_holes equal their plain versions, native/postprocess.cpp and a repeat; "
               f"{time.perf_counter() - t0:.1f} s [{card}]")
+    small = tuple(2 * b for b in cc.BRICK)
+    t0 = time.perf_counter()
+    for shape in cc_cases.off_by_one_shapes() + cc_cases.off_by_one_shapes((2, 3, 2)):
+        for p in (0.1, 0.3, 0.6):
+            k4_agree(f"random p={p} {shape}", rng.random(shape) < p, plain=True)
+    for label, m in cc_cases.cases(small).items():
+        k4_agree(f"{label} {small}", m, plain=True)
+    print(f"K4 brick cases (brick {cc.BRICK}): 24 random masks at 8 shapes one voxel off a brick "
+          f"multiple and {len(cc_cases.cases(small))} cases at {small}: cc_label (26, 6), "
+          f"largest_component, fill_holes equal their plain versions, native/postprocess.cpp "
+          f"and a repeat; {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    for label, m in cc_cases.cases(K4_SHAPE).items():
+        k4_agree(f"{label} {K4_SHAPE}", m, plain=False)
+    print(f"K4 brick cases at {K4_SHAPE}: {len(cc_cases.cases(K4_SHAPE))} cases, cc_label (26, 6) "
+          f"equal scipy's labels, largest_component and fill_holes native/postprocess.cpp, each "
+          f"twice the same; {time.perf_counter() - t0:.1f} s [{card}]")
 
     # the compose: ellipsoid case at K4_SHAPE and phase 4's real labelmask
     vol, ext_raw = serve["cases"][0]
@@ -932,31 +979,51 @@ def check_k4(card: str, serve: dict) -> dict:
     # times at the ellipsoid case, the kernels' own inputs
     packed, ext_bits, pack_z = compose_cases["ellipsoid"]
     l_in, t_in, e_in = cc.compose_prep(packed, ext_bits, pack_z=pack_z)
+    r_in = torch.from_numpy(masks["random p=0.3"]).cuda()
     n = l_in.numel()
-    calls = {  # name: (kernel, plain, bytes in + out, kernels per call)
-        "cc_label": (lambda: cc.cc_label(l_in), lambda: cc.cc_label_reference(l_in), 5 * n, 3),
+    calls = {  # name: (kernel, plain, bytes in + out, the kernel on random p=0.3 or None)
+        "cc_label": (lambda: cc.cc_label(l_in), lambda: cc.cc_label_reference(l_in), 5 * n,
+                     lambda: cc.cc_label(r_in)),
         "largest_component": (lambda: cc.largest_component(l_in),
-                              lambda: cc.largest_component_reference(l_in), 2 * n, 4),
-        "fill_holes": (lambda: cc.fill_holes(e_in), lambda: cc.fill_holes_reference(e_in), 2 * n, 4),
+                              lambda: cc.largest_component_reference(l_in), 2 * n,
+                              lambda: cc.largest_component(r_in)),
+        "fill_holes": (lambda: cc.fill_holes(e_in), lambda: cc.fill_holes_reference(e_in), 2 * n,
+                       lambda: cc.fill_holes(r_in)),
         "compose_prep": (lambda: cc.compose_prep(packed, ext_bits, pack_z=pack_z),
                          lambda: cc.compose_prep_reference(packed, ext_bits, pack_z=pack_z),
-                         n + n // 8 + 3 * n, 1),
+                         n + n // 8 + 3 * n, None),
         "compose_finish": (lambda: cc.compose_finish(l_in, t_in),
-                           lambda: cc.compose_finish_reference(l_in, t_in), 2 * n + n + n // 4 + 24, 1),
+                           lambda: cc.compose_finish_reference(l_in, t_in), 2 * n + n + n // 4 + 24,
+                           None),
     }
     out = {}
-    for name, (kernel, plain, n_bytes, per_call) in calls.items():
+    for name, (kernel, plain, n_bytes, speckle) in calls.items():
         t = [cuda_ms(plain, iters=2, warmup=1), cuda_ms(kernel, iters=10), cuda_ms(kernel, iters=10),
              cuda_ms(plain, iters=2, warmup=1)]
         b = bound(n_bytes, 0)
         out[name] = dict(max_abs_err=float(mismatches), ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
-                         **b, kernels_per_call=kernels_per_call(kernel, per_call))
-        print(f"K4 {name} {K4_SHAPE}: kernel {out[name]['ms']:.4f} ms ({per_call} kernels), plain "
-              f"{out[name]['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
-    t_compose = [cuda_ms(lambda: D.compose_final(packed, ext_bits, pack_z=pack_z), iters=5)
-                 for _ in range(2)]
-    print(f"K4 whole compose_final {K4_SHAPE} ellipsoid: {min(t_compose):.3f} ms (7 calls, "
-          f"28 kernels) [{card}]")
+                         cold_ms=cold_ms(kernel), **b,
+                         kernels_per_call=kernels_per_call(kernel, K4_KERNELS[name]))
+        per_call = out[name]["kernels_per_call"]
+        per_call = f"{per_call} kernels" if per_call else "kernels per call not measured"
+        line = (f"K4 {name} {K4_SHAPE}: kernel {out[name]['ms']:.4f} ms, L2 flushed "
+                f"{out[name]['cold_ms']:.4f} ms ({per_call}), plain "
+                f"{out[name]['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        if speckle is not None:
+            out[name].update(random_p03_ms=cuda_ms(speckle, iters=10), random_p03_cold_ms=cold_ms(speckle))
+            line += (f"; random p=0.3: {out[name]['random_p03_ms']:.4f} ms, L2 flushed "
+                     f"{out[name]['random_p03_cold_ms']:.4f} ms")
+        print(f"{line} [{card}]")
+    compose = lambda: D.compose_final(packed, ext_bits, pack_z=pack_z)  # noqa: E731
+    t_compose = [cuda_ms(compose, iters=5) for _ in range(2)]
+    reset_counts()
+    compose()
+    calls_made = {k: v for k, v in read_counts().items() if k in K4_NAMES and k != "cc_label"}
+    assert calls_made == {k: K4_PER_VOLUME[k] for k in calls_made}, calls_made
+    kernels = sum(K4_KERNELS[k] * n for k, n in calls_made.items())
+    print(f"K4 whole compose_final {K4_SHAPE} ellipsoid: {min(t_compose):.3f} ms, L2 flushed "
+          f"{cold_ms(compose):.3f} ms ({sum(calls_made.values())} calls, {kernels} K4 kernels: "
+          f"the calls times their kernels per call) [{card}]")
     return out
 
 

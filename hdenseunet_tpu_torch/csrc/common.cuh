@@ -16,8 +16,10 @@
 namespace hdu {
 
 constexpr int kCounterSlots = 1024;
-// The last kReservedSlots counters belong to cc.cu's compose_finish (its six
-// bbox accumulators and its ticket); the other kernels take tickets below.
+// The last kReservedSlots counters belong to cc.cu: compose_finish's six
+// bbox accumulators and its ticket, then the labelling's count of listed
+// local roots (set back to zero by the finish pass that follows the roots
+// pass); the other kernels take tickets below.
 constexpr int kReservedSlots = 8;
 constexpr int kTicketSlots = kCounterSlots - kReservedSlots;
 constexpr long long kPartialFloats = 1LL << 19;  // 2 MiB

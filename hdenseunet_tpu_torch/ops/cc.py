@@ -22,6 +22,13 @@ step for step: min-label propagation with two pointer jumps per round, the
 neighbourhood minimum as shifted ``torch.minimum`` along each axis (exact on
 int32), ``bincount`` for the sizes and the +N seed offset for the hole fill.
 There is no fallback from a kernel to its plain version.
+
+The kernels of K4a-c label in two levels: one block labels a ``BRICK`` of
+voxels in shared memory, then only voxels on brick faces hook across bricks
+in global memory; K4b and K4c reduce each brick piece's count or border flag
+at its local root, and a pass over the local roots alone carries them to
+the component's root before one pass over every voxel writes the result
+(``csrc/cc.cu`` has the design and what bounds it).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 from . import build
 
 SENT = 2**31 - 1  # "not a label": outside the labelled set (JAX's _SENT)
+BRICK = (8, 16, 64)  # the kernels' brick (X, Y, Z): csrc/cc.cu's kBrickX, kBrickY, kBrickZ
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -40,9 +48,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib():
     """The built library with the argument types of K4's entry points."""
     lib = build.library()
-    lib.hdu_cc_label.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P]
-    lib.hdu_cc_largest.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
-    lib.hdu_cc_fill.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+    lib.hdu_cc_label.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.hdu_cc_largest.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+    lib.hdu_cc_fill.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
     lib.hdu_compose_prep.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.hdu_compose_finish.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
     return lib
@@ -236,19 +244,42 @@ def _check_mask(name, mask, dtypes=(torch.bool,)):
     _check_size(mask)
 
 
+def _bricks(shape) -> int:
+    """Bricks of the kernels' grid over a volume, those cut short included."""
+    bricks = 1
+    for size, edge in zip(shape, BRICK):
+        bricks *= -(-size // edge)
+    return bricks
+
+
+def _roots_capacity(shape, conn: int) -> int:
+    """Most local roots the brick pass can list for a volume: per brick, one
+    voxel of every 2x2x2 cell (26-connected pieces cannot share one) or half
+    the voxels (6-connected: a checkerboard)."""
+    per_brick = (BRICK[0] // 2) * (BRICK[1] // 2) * (BRICK[2] // 2)
+    return _bricks(shape) * (per_brick if conn == 26 else BRICK[0] * BRICK[1] * BRICK[2] // 2)
+
+
+def _filled(mask):
+    """One byte of work a brick: whether it holds any of the labelled set."""
+    return torch.empty((_bricks(mask.shape),), dtype=torch.uint8, device=mask.device)
+
+
 def cc_label(mask, conn: int = 26):
     """int32 (X, Y, Z): the smallest flat index of each voxel's component
     (conn 26 or 6), SENT outside the mask. A CPU tensor takes
     :func:`cc_label_reference`; a bool CUDA tensor launches K4a (three
-    kernels) and counts the call in ``cc_label.launches``, or raises."""
+    kernels: brick, merge, finish) and counts the call in
+    ``cc_label.launches``, or raises."""
     if conn not in (26, 6):
         raise ValueError(f"cc_label: conn must be 26 or 6, got {conn}")
     if mask.is_cpu:
         return cc_label_reference(mask, conn)
     _check_mask("cc_label", mask)
     label = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    filled = _filled(mask)
     build.run(_lib().hdu_cc_label, "cc_label", mask,
-              mask.data_ptr(), label.data_ptr(), *mask.shape, conn, 0)
+              mask.data_ptr(), label.data_ptr(), filled.data_ptr(), *mask.shape, conn, 0)
     cc_label.launches += 1
     return label
 
@@ -259,21 +290,24 @@ cc_label.launches = 0
 def largest_component(mask):
     """Bool mask of the largest 26-connected component (scipy's tie rule).
     A CPU tensor takes :func:`largest_component_reference`; a bool CUDA
-    tensor launches K4b (K4a's three kernels and one more) and counts the
-    call in ``largest_component.launches`` and ``cc_label.launches``, or
+    tensor launches K4b (K4a's brick and merge kernels with each piece's
+    count, a pass over the local roots, and a finish) and counts the call
+    in ``largest_component.launches`` and ``cc_label.launches``, or
     raises."""
     if mask.is_cpu:
         return largest_component_reference(mask)
     _check_mask("largest_component", mask)
     label = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
     sizes = torch.empty_like(label)
+    roots = torch.empty((_roots_capacity(mask.shape, 26),), dtype=torch.int32, device=mask.device)
+    filled = _filled(mask)
     best = torch.empty((1,), dtype=torch.int64, device=mask.device)
     out = torch.empty_like(mask)
     build.run(_lib().hdu_cc_largest, "largest_component", mask,
-              mask.data_ptr(), label.data_ptr(), sizes.data_ptr(), best.data_ptr(),
-              out.data_ptr(), *mask.shape)
+              mask.data_ptr(), label.data_ptr(), sizes.data_ptr(), roots.data_ptr(),
+              filled.data_ptr(), best.data_ptr(), out.data_ptr(), *mask.shape, scratch=True)
     largest_component.launches += 1
-    cc_label.launches += 1  # its first three kernels are K4a's
+    cc_label.launches += 1  # its brick and merge kernels are K4a's
     return out
 
 
@@ -282,19 +316,23 @@ largest_component.launches = 0
 
 def fill_holes(mask):
     """``ndimage.binary_fill_holes`` (6-connected background). A CPU tensor
-    takes :func:`fill_holes_reference`; a bool CUDA tensor launches K4c (K4a's
-    three kernels over the background and one more) and counts the call in
-    ``fill_holes.launches`` and ``cc_label.launches``, or raises."""
+    takes :func:`fill_holes_reference`; a bool CUDA tensor launches K4c
+    (K4a's brick and merge kernels over the background with each piece's
+    border flag, a pass over the local roots, and a finish) and counts the
+    call in ``fill_holes.launches`` and ``cc_label.launches``, or raises."""
     if mask.is_cpu:
         return fill_holes_reference(mask)
     _check_mask("fill_holes", mask)
     label = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
     flags = torch.empty(mask.shape, dtype=torch.uint8, device=mask.device)
+    roots = torch.empty((_roots_capacity(mask.shape, 6),), dtype=torch.int32, device=mask.device)
+    filled = _filled(mask)
     out = torch.empty_like(mask)
     build.run(_lib().hdu_cc_fill, "fill_holes", mask,
-              mask.data_ptr(), label.data_ptr(), flags.data_ptr(), out.data_ptr(), *mask.shape)
+              mask.data_ptr(), label.data_ptr(), flags.data_ptr(), roots.data_ptr(),
+              filled.data_ptr(), out.data_ptr(), *mask.shape, scratch=True)
     fill_holes.launches += 1
-    cc_label.launches += 1  # its first three kernels are K4a's
+    cc_label.launches += 1  # its brick and merge kernels are K4a's
     return out
 
 

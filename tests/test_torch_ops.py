@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from hdenseunet_tpu_torch.ops import build
+from hdenseunet_tpu_torch.ops import build, cc, cc_cases
 from hdenseunet_tpu_torch.ops import fused_affine as K
 from hdenseunet_tpu_torch.ops import wce as W
 
@@ -562,6 +562,27 @@ def test_cuda_cc_kernels_match_plain(cuda, shape, p):
         got = cc.cc_label(m, conn)
         assert torch.equal(got, cc.cc_label_reference(m, conn)), conn
         assert torch.equal(got, cc.cc_label(m, conn))
+    assert torch.equal(cc.largest_component(m), cc.largest_component_reference(m))
+    assert torch.equal(cc.fill_holes(m), cc.fill_holes_reference(m))
+
+
+@pytest.mark.parametrize("name", list(cc_cases.cases(tuple(2 * b for b in cc.BRICK))))
+def test_cuda_cc_kernels_on_brick_cases(cuda, name):
+    """The brick-boundary cases (ops/cc_cases.py) at two bricks an axis:
+    labels, largest component and hole fill equal the plain versions."""
+    m = torch.from_numpy(cc_cases.cases(tuple(2 * b for b in cc.BRICK))[name]).to(cuda)
+    for conn in (26, 6):
+        assert torch.equal(cc.cc_label(m, conn), cc.cc_label_reference(m, conn)), conn
+    assert torch.equal(cc.largest_component(m), cc.largest_component_reference(m))
+    assert torch.equal(cc.fill_holes(m), cc.fill_holes_reference(m))
+
+
+@pytest.mark.parametrize("p", [0.1, 0.3, 0.6])
+@pytest.mark.parametrize("shape", cc_cases.off_by_one_shapes() + cc_cases.off_by_one_shapes((2, 3, 2)))
+def test_cuda_cc_kernels_off_a_brick_multiple(cuda, shape, p):
+    m = torch.from_numpy(np.random.default_rng(sum(shape)).random(shape) < p).to(cuda)
+    for conn in (26, 6):
+        assert torch.equal(cc.cc_label(m, conn), cc.cc_label_reference(m, conn)), conn
     assert torch.equal(cc.largest_component(m), cc.largest_component_reference(m))
     assert torch.equal(cc.fill_holes(m), cc.fill_holes_reference(m))
 
