@@ -49,7 +49,9 @@ failure exits non-zero):
      ops/cc_cases.py (at two bricks an axis and at shapes one voxel off a
      brick multiple, also against the plain versions; at 512x512x112
      against native/postprocess.cpp and scipy's labels) and on the first
-     volume's real thresholded labelmask, every kernel twice; times warm and
+     volume's real thresholded labelmask, every kernel twice; compose_finish
+     alone on the edges of its grid (ops/cc_cases.py: empty, 8 corners,
+     full; z lengths 4, 8, 12 modulo 16; a 4-byte offset); times warm and
      with the L2 flushed (K4a-c also at random p=0.3), bounds and kernels
      per call;
 5. the training path: ``train`` for 4 end2end steps at full width (global
@@ -85,7 +87,13 @@ failure exits non-zero):
 8. parity: ``python -m hdenseunet_tpu_torch.weights.parity`` on seeded
    full-preset weights written as an .npz: the 2D model at 224x224 and the
    end2end hybrid at 224x224x8 dumped in float32 on the card and on the
-   CPU, ``compare`` exiting 0 at the tool's defaults;
+   CPU, ``compare`` exiting 0 at the tool's defaults; then the variants
+   (``variants_path``): the legacy skip-connection DenseUNet-167 in
+   serving form (batch 8 of 224x224, batch 1 of 512x512, bfloat16, K1)
+   against the same forward through K1's plain version, and its
+   training-mode step (K2); ``DilatedResNet`` at widths 64-512, forward and
+   training-mode step; both card against CPU in float32 through the parity
+   tool; ms, peak memory and FLOPs per forward;
 9. data parallelism over the 'data' mesh, full width (one step of each
    stage from the seeded weights on the first global batch is the
    one-process reference):
@@ -117,7 +125,9 @@ then a JSON line describing the kernels, and the last line
 Each path of phases 4-6, 8 and 9 (serve, serve_dpp, serve_dpp_dense,
 serve_per_window, serve_shared_2d, serve_uint8, serve_host_loop, serve_tiled,
 mfu, trace, train_*, train_end2end_convs, cli_*, cli_test_tiled, parity,
-train_dp_w1_*, train_dp_w2_*, serve_dp_w2, cli_train_dp, cli_train_dp_resume)
+variants_legacy_serve, variants_legacy_train, variants_dilated,
+variants_parity, train_dp_w1_*, train_dp_w2_*, serve_dp_w2, cli_train_dp,
+cli_train_dp_resume)
 runs with every launch counter set to 0 just before it and read just after
 (in the process that runs it), and fails if a kernel of that path did not
 launch.
@@ -190,11 +200,18 @@ TILE = 256  # the tiled scorer's in-plane window (serve_tiled, cli_test_tiled)
 # thresholds and the largest-component rule can flip
 HOST_LOOP_BOUND = dict(prob=2.0**-5, voxels=1e-4)
 SCOPES = ("scoring", "fetch", "postprocess")  # VolumePredictor's annotate scopes
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
 # cuDNN's and CUTLASS's convolution kernels (implicit GEMM and GEMM forms)
 CONV_KERNEL = re.compile(r"xmma|cutlass|cudnn|conv(?!ert)|gemm", re.IGNORECASE)
 DP_RANKS, DP_STEPS = 2, 3  # processes sharing the card over gloo; their steps a stage
 DP_TIMEOUT = datetime.timedelta(seconds=300)  # each rendezvous and collective
 DP_WALL = 900  # seconds for a group of rank processes, then the phase fails
+# A bfloat16 forward of the full 2D model through K1 against the same
+# forward through K1's plain version: K1 rounds x*A+B with one fused
+# multiply-add, the plain version with two roundings, so a BN output may
+# differ by one bfloat16 ulp (2^-8 relative); 161 such layers and the convs
+# after them carry it to the logits. Relative L2 of the logits within 2^-5
+VARIANT_BF16_RTOL = 2.0**-5
 
 
 def card_line() -> str:
@@ -243,25 +260,30 @@ def cold_ms(fn, iters: int = 10) -> float:
     return sum(start.elapsed_time(end) for start, end in marks) / iters
 
 
-def kernels_per_call(fn, expect: int = 1) -> int | None:
-    """Kernels the card runs for one call of fn, counted by torch.profiler
-    (host and device activities), after a first call (which may make the
-    stream's scratch buffer); it must be ``expect``. None when three
-    profiles in a row return no device event at all: the profiler saw
-    nothing, not even the kernel."""
+def kernels_per_call(fn, expect: int = 1) -> int:
+    """Kernels one call of fn launches, counted by torch.profiler (host and
+    device activities) after a first call (which may make the stream's
+    scratch buffer): the runtime's launch calls (cudaLaunchKernel), which
+    the profiler records on the host; they must be ``expect``, and so must
+    the device's kernel events where the profiler kept any. It keeps none
+    for a lone kernel in a process older than some seconds: it maps the
+    kernel's device time stamps far from its launch on the host timeline,
+    then drops it as outside the profile's window (kineto's out-of-range
+    count), however long the window is held open around the call."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            assert len(names) == expect, f"one call ran {len(names)} kernels: {names}"
-            return expect
-    print("  kernels per call: not measured, the profiler returned no device event")
-    return None
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    launched = [e.name for e in events if e.name in LAUNCH_CALLS]
+    names = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(launched) == expect, f"one call launched {len(launched)} kernels: {launched}"
+    assert len(names) in (0, expect), f"one call ran {len(names)} kernels: {names}"
+    if not names:
+        print(f"  kernels per call: {expect} launch calls; the profiler kept no device event")
+    return expect
 
 
 def in_turns(kernel, plain) -> tuple[float, float]:
@@ -837,6 +859,179 @@ def parity_path(card: str, bsr_per_forward: int) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def plain_k1():
+    """Every frozen BN∘Scale∘ReLU of the models through K1's plain version
+    for the block, on the card too: the yardstick a forward through K1 is
+    held to. The plain version counts no launch."""
+    import types
+
+    from hdenseunet_tpu_torch.models import layers as L
+    from hdenseunet_tpu_torch.ops.fused_affine import affine_relu_reference
+
+    saved = L.AffineReLU
+    L.AffineReLU = types.SimpleNamespace(
+        apply=lambda x, a, b, relu: affine_relu_reference(x, a, b, relu=relu))
+    try:
+        yield
+    finally:
+        L.AffineReLU = saved
+
+
+def with_plain_k1(fn):
+    """fn run under :func:`plain_k1`."""
+    def run():
+        with plain_k1():
+            return fn()
+    return run
+
+
+def timed_steps(step, steps: int = 2) -> tuple[list[float], float]:
+    """(ms of each of ``steps`` calls of step after one warm-up, each
+    synchronised, peak device memory in GiB over them)."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, torch.cuda.max_memory_allocated() / 2**30
+
+
+def variants_path(card: str) -> dict:
+    """The models the serving and training paths do not run, at full width:
+    - the legacy DenseUNet-167 (``DenseUNet2D(skip_connections=True)``,
+      'line0' and the encoder's skip adds), seeded weights, in serving form
+      (``prepare_serving``: bfloat16 convs, BN∘Scale folded, K1): batch 8 of
+      224x224 and batch 1 of 512x512, each held to the same forward through
+      K1's plain version on the card (relative L2 of the logits within
+      VARIANT_BF16_RTOL); then training-mode steps, live BN, decoder
+      dropout 0.3, remat, the 2D stage's weighted CE (K2 both ways), batch 8
+      of 224x224 in bfloat16: ms, peak memory;
+    - ``DilatedResNet`` (widths 64-512, one channel): forward of batch 2 of
+      224x224x8 in bfloat16 (serving form) and training-mode steps (live BN,
+      plain cross-entropy); it has no kernel of its own;
+    - both at float32 through the parity tool, card against CPU at its
+      defaults: the legacy 2D at 64x64, the dilated network at 32x32x8.
+    FLOPs per forward from ``utils.flops.conv_flops`` (meta device). Returns
+    the launch counts of each path."""
+    import torch.nn.functional as F
+
+    from hdenseunet_tpu_torch.core import params as P
+    from hdenseunet_tpu_torch.core.initializers import init_model
+    from hdenseunet_tpu_torch.models import layers as L
+    from hdenseunet_tpu_torch.models.denseunet2d import DenseUNet2D
+    from hdenseunet_tpu_torch.models.dilated_resnet import DilatedResNet
+    from hdenseunet_tpu_torch.train.loss import weighted_crossentropy_2d
+    from hdenseunet_tpu_torch.utils.flops import conv_flops
+    from hdenseunet_tpu_torch.weights import parity
+
+    paths = {}
+    rng = np.random.default_rng(SEED + 9)
+    legacy = init_model(DenseUNet2D(skip_connections=True, device="cuda"), SEED)
+    serving = L.prepare_serving(copy.deepcopy(legacy), "cuda", torch.bfloat16)
+    inputs = {shape: torch.from_numpy(rng.normal(0, 60, shape).astype(np.float32)).cuda().to(torch.bfloat16)
+              for shape in ((8, 224, 224, 3), (1, 512, 512, 3))}
+    with torch.inference_mode():
+        for shape, x in inputs.items():
+            flops = conv_flops(DenseUNet2D(skip_connections=True, device="meta"), shape)
+            forward = lambda: serving(x)  # noqa: E731
+            kernel_ms, plain_ms = in_turns(forward, with_plain_k1(forward))
+            torch.cuda.reset_peak_memory_stats()
+            got = serving(x)[1].float()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            want = with_plain_k1(forward)()[1].float()
+            rel = float((got - want).norm() / want.norm())
+            assert bool(torch.isfinite(got).all()) and rel <= VARIANT_BF16_RTOL, (shape, rel)
+            print(f"variants: legacy DenseUNet-167 serving bf16 {shape}: {kernel_ms:.3f} ms a forward "
+                  f"(plain K1 {plain_ms:.3f}), {flops / 1e12:.4f} TFLOP ({flops / kernel_ms / 1e9:.1f} "
+                  f"TFLOP/s), peak {peak:.2f} GiB; logits against the plain-K1 forward: relative L2 "
+                  f"{rel:.3g}, max abs {float((got - want).abs().max()):.3g} [{card}]")
+        reset_counts()
+        for x in inputs.values():
+            serving(x)
+        torch.cuda.synchronize()
+        launches = paths["variants_legacy_serve"] = read_counts()
+    assert launches == only(affine_relu=2 * BSR_2D), launches
+    del serving
+
+    image = torch.from_numpy(rng.normal(0, 60, (8, 224, 224, 3)).astype(np.float32)).cuda().to(torch.bfloat16)
+    labels = torch.from_numpy(rng.integers(0, 3, (8, 224, 224)).astype(np.int32)).cuda()
+
+    def legacy_step():
+        legacy.zero_grad(set_to_none=True)
+        ctx = L.Ctx(SEED, device="cuda", remat=True)
+        _, logits = legacy(image, ctx, decoder_dropout=0.3)
+        loss = weighted_crossentropy_2d(logits, labels)
+        loss.backward()
+        return loss
+
+    reset_counts()
+    times, peak = timed_steps(legacy_step)
+    launches = paths["variants_legacy_train"] = read_counts()
+    assert launches == only(wce_forward=3, wce_backward=3), launches  # the warm-up and 2 timed steps
+    assert all(bool(torch.isfinite(t.grad).all()) for t in legacy.parameters() if t.grad is not None)
+    print(f"variants: legacy DenseUNet-167 train step (live BN, remat, weighted CE) batch 8 of 224x224 "
+          f"bf16: {[round(t, 2) for t in times]} ms, peak {peak:.2f} GiB, launches "
+          f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+
+    dilated = init_model(DilatedResNet(device="cuda"), SEED)
+    shape = (2, 224, 224, 8, 1)
+    flops = conv_flops(DilatedResNet(device="meta"), shape)
+    x = torch.from_numpy(rng.normal(0, 60, shape).astype(np.float32)).cuda().to(torch.bfloat16)
+    target = torch.from_numpy(rng.integers(0, 2, shape[:4])).cuda()
+    serving = L.prepare_serving(copy.deepcopy(dilated), "cuda", torch.bfloat16)
+    reset_counts()
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: serving(x), iters=5, warmup=2)
+        torch.cuda.reset_peak_memory_stats()
+        out = serving(x)
+        fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+    assert out.shape == shape[:4] + (2,) and bool(torch.isfinite(out).all()), out.shape
+    del serving
+
+    def dilated_step():
+        dilated.zero_grad(set_to_none=True)
+        logits = dilated(x, L.Ctx(SEED, device="cuda"))
+        loss = F.cross_entropy(logits.float().reshape(-1, 2), target.reshape(-1))
+        loss.backward()
+        return loss
+
+    times, peak = timed_steps(dilated_step)
+    launches = paths["variants_dilated"] = read_counts()
+    assert launches == only(), launches  # no kernel of the port's on this network
+    print(f"variants: DilatedResNet (64, 128, 256, 512) bf16 batch 2 of 224x224x8: forward "
+          f"{fwd_ms:.3f} ms, {flops / 1e12:.4f} TFLOP ({flops / fwd_ms / 1e9:.1f} TFLOP/s), peak "
+          f"{fwd_peak:.2f} GiB; train step (live BN, cross-entropy) {[round(t, 2) for t in times]} ms, "
+          f"peak {peak:.2f} GiB; no kernel of the port [{card}]")
+
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_", dir=BUILD) as tmp:
+        reset_counts()
+        for name, model, x_shape, dump in (
+            ("legacy 2D", legacy, (1, 64, 64, 3),
+             lambda p, s, v, d: parity.dump_activations(p, s, v, skip_connections=True, device=d)),
+            ("DilatedResNet", dilated, (1, 32, 32, 8, 1),
+             lambda p, s, v, d: parity.dump_activations_dilated(p, s, v, device=d)),
+        ):
+            params, state = P.to_numpy(model)
+            v = rng.normal(0, 60, x_shape).astype(np.float32)
+            files = []
+            for device in ("cuda", "cpu"):
+                files.append(str(Path(tmp) / f"{name}_{device}.npz".replace(" ", "_")))
+                np.savez(files[-1], **dump(params, state, v, device))
+            code = exit_code(parity.main, ["compare", *files])
+            assert code == 0, f"parity compare of the {name} dumps, card against CPU, exited {code}"
+            print(f"variants: {name} {x_shape} float32 through the parity tool, card against CPU at "
+                  f"its defaults (rtol = atol = 1e-3): exit 0 [{card}]")
+        launches = paths["variants_parity"] = read_counts()
+    assert launches == only(affine_relu=BSR_2D), launches
+    return paths
+
+
 def ellipsoid_case(shape):
     """An ellipsoid liver with a hole inside, a spherical tumour in it, and
     an external mask a little larger than the liver, bool (X, Y, Z)."""
@@ -871,6 +1066,15 @@ def compose_inputs(liver, tumor, ext, pack_z: int):
     packed = (liver | tumor).astype(np.uint8) + 2 * tumor.astype(np.uint8)
     ext_bits = np.packbits(ext[:, :, :pack_z].astype(np.uint8), axis=2)
     return torch.from_numpy(packed).cuda(), torch.from_numpy(ext_bits).cuda()
+
+
+def at_offset(t, offset: int):
+    """A copy of t whose storage starts ``offset`` bytes into a buffer (an
+    alignment the kernels' vector paths do not take)."""
+    flat = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8, device=t.device)
+    out = flat[offset:offset + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def k4_agree(label: str, m, *, plain: bool) -> int:
@@ -976,6 +1180,24 @@ def check_k4(card: str, serve: dict) -> dict:
               f"(native), label counts {np.bincount(host.ravel(), minlength=3).tolist()} [{card}]")
         mismatches += int((labels != want[0]).sum())
 
+    # compose_finish alone on the edges of its grid, at 512x512x112 and at z
+    # lengths 4, 8 and 12 modulo 16; also from a 4-byte offset (the kernel's
+    # quad path) and twice each (the counters reset)
+    t0 = time.perf_counter()
+    n_cases = 0
+    for shape in [K4_SHAPE] + cc_cases.compose_shapes():
+        for label, (lv, tv) in cc_cases.compose_cases(shape, seed=SEED + sum(shape)).items():
+            for offset in (0, 4):
+                args = [at_offset(torch.from_numpy(a).cuda(), offset) for a in (lv, tv)]
+                want = cc.compose_finish_reference(*args)
+                for _ in range(2):
+                    got = cc.compose_finish(*args)
+                    assert all(torch.equal(g, w) for g, w in zip(got, want)), (label, shape, offset, got[2], want[2])
+                n_cases += 1
+    print(f"K4 compose_finish edges: {n_cases} cases (empty, 8 corners, full, random; offsets 0 and 4 "
+          f"bytes) at {K4_SHAPE} and {cc_cases.compose_shapes()}: labelmap, wire and bbox equal the "
+          f"plain version bit for bit, twice; {time.perf_counter() - t0:.1f} s [{card}]")
+
     # times at the ellipsoid case, the kernels' own inputs
     packed, ext_bits, pack_z = compose_cases["ellipsoid"]
     l_in, t_in, e_in = cc.compose_prep(packed, ext_bits, pack_z=pack_z)
@@ -1004,10 +1226,8 @@ def check_k4(card: str, serve: dict) -> dict:
         out[name] = dict(max_abs_err=float(mismatches), ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
                          cold_ms=cold_ms(kernel), **b,
                          kernels_per_call=kernels_per_call(kernel, K4_KERNELS[name]))
-        per_call = out[name]["kernels_per_call"]
-        per_call = f"{per_call} kernels" if per_call else "kernels per call not measured"
         line = (f"K4 {name} {K4_SHAPE}: kernel {out[name]['ms']:.4f} ms, L2 flushed "
-                f"{out[name]['cold_ms']:.4f} ms ({per_call}), plain "
+                f"{out[name]['cold_ms']:.4f} ms ({out[name]['kernels_per_call']} kernels), plain "
                 f"{out[name]['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         if speckle is not None:
             out[name].update(random_p03_ms=cuda_ms(speckle, iters=10), random_p03_cold_ms=cold_ms(speckle))
@@ -2170,6 +2390,7 @@ def main() -> None:
     model_check(card)
     train_check(card)
     paths["parity"] = parity_path(card, bsr_per_forward)
+    paths.update(variants_path(card))
     one_steps = {arch: one_step(arch) for arch in ("end2end", "2d")}
     paths.update(train_dp_w1(card, one_steps))
     exact_steps = {arch: one_step(arch, dtype="float32") for arch in ("end2end", "2d")}

@@ -12,7 +12,8 @@ and times, through its own ``chip_smoke.cuda_ms`` and ``cold_ms`` (warm,
 and with the L2 flushed), ``cc_label``, ``largest_component`` and
 ``fill_holes`` at 512x512x112 on chip_smoke.py's ellipsoid case (the
 compose's own inputs, from ``compose_prep``) and on seeded random masks at
-p = 0.05 and 0.3, and the whole ``compose_final``. It prints each turn's
+p = 0.05 and 0.3, ``compose_finish`` on the ellipsoid's liver and tumour,
+and the whole ``compose_final``. It prints each turn's
 times and per checkout the median of each time over the rounds, every line
 with the card's name and power limit. It raises without a card and catches
 nothing.
@@ -37,7 +38,7 @@ from hdenseunet_tpu_torch.infer import device_postprocess as D
 from hdenseunet_tpu_torch.ops import cc
 liver, tumor, ext = S.ellipsoid_case(S.K4_SHAPE)
 packed, ext_bits = S.compose_inputs(liver, tumor, ext, S.K4_SHAPE[2])
-l_in, _, e_in = cc.compose_prep(packed, ext_bits, pack_z=S.K4_SHAPE[2])
+l_in, t_in, e_in = cc.compose_prep(packed, ext_bits, pack_z=S.K4_SHAPE[2])
 rng = np.random.default_rng(0)
 cases = {"ellipsoid": (l_in, e_in)}
 for p in (0.05, 0.3):
@@ -49,6 +50,9 @@ for case, (a, b) in cases.items():
                      ("fill_holes", lambda: cc.fill_holes(b))):
         out[f"{name} {case}"] = S.cuda_ms(fn, iters=20)
         out[f"{name} {case} L2 flushed"] = S.cold_ms(fn)
+finish = lambda: cc.compose_finish(l_in, t_in)
+out["compose_finish ellipsoid"] = S.cuda_ms(finish, iters=20)
+out["compose_finish ellipsoid L2 flushed"] = S.cold_ms(finish)
 out["compose_final ellipsoid"] = S.cuda_ms(lambda: D.compose_final(packed, ext_bits, pack_z=S.K4_SHAPE[2]), iters=5)
 print(json.dumps(out))
 """

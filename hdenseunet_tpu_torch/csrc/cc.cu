@@ -71,10 +71,18 @@
 // (np.packbits order, most significant bit first) to one cross dilation of
 // the padded mask, eight voxels (one ext byte) per thread. compose_finish:
 // the {0,1,2} labelmap, its 2-bit wire (4 z voxels per byte, _pack2bits) and
-// its nonzero bbox in one launch: blocks reduce the bbox and add it to six
-// accumulators in the stream's scratch counters with atomicMax; the last
-// block to arrive (common.cuh) writes the bbox and sets the counters back to
-// zero. An empty map gives lo = the axis length > hi = -1, as _bbox_finish.
+// its nonzero bbox in one launch. What bounds it: bytes, 3.25 a voxel (two
+// masks in, labels and wire out). Its first form, one 4-voxel quad a
+// thread and a block for every 1024 voxels, ran at a fifth of that bound:
+// each of its ~29 k blocks at 512x512x112 ran six block-wide reductions,
+// up to six atomicMax on the same six words and a ticket, all serialised
+// in L2. Now a grid of as many blocks as the card holds at once strides over the
+// volume in 16-voxel chunks, the bbox grows in registers, and each block
+// adds it to six accumulators in the stream's scratch counters after one
+// warp-shuffle reduction (at most six atomicMax and one ticket a block);
+// the last block to arrive (common.cuh) writes the bbox and sets the
+// counters back to zero. An empty map gives lo = the axis length > hi =
+// -1, as _bbox_finish.
 //
 // Each launch goes on the caller's stream, allocates nothing and the entry
 // points return cudaGetLastError(); the Python wrapper raises on a non-zero
@@ -83,6 +91,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -590,52 +600,102 @@ __global__ void compose_prep_kernel(const uint8_t* __restrict__ scores,
   *reinterpret_cast<unsigned long long*>(ext + off) = ev;
 }
 
-// Four z voxels per thread: byte t of the wire, labels 4t..4t+3.
-__global__ void compose_finish_kernel(const uint8_t* __restrict__ liver,
-                                      const uint8_t* __restrict__ tumor,
-                                      uint8_t* __restrict__ labels, uint8_t* __restrict__ wire,
-                                      int* __restrict__ bbox, int Xp, int Yp, int Z,
-                                      unsigned int* __restrict__ counters) {
-  const int Q = Z / 4;
-  const long long total = (long long)Xp * Yp * Q;
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  // grow[k]: Xp - x_lo, x_hi + 1, Yp - y_lo, y_hi + 1, Z - z_lo, z_hi + 1;
-  // all 0 where nothing is labelled, and maxima combine them
-  unsigned long long grow[6] = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
-  if (t < total) {
-    const unsigned lv = *reinterpret_cast<const unsigned*>(liver + 4 * t);
-    const unsigned tv = *reinterpret_cast<const unsigned*>(tumor + 4 * t);
-    unsigned out = 0u, packed = 0u;
-    int lo = 4, hi = -1;
+// Labels of four voxels from their liver and tumour bytes (bit 0 of each
+// byte): tumour 2 over liver 1 over background 0.
+__device__ __forceinline__ unsigned labels4(unsigned lv, unsigned tv) {
+  const unsigned t = tv & 0x01010101u;
+  return (t << 1) | (lv & ~t & 0x01010101u);
+}
+
+// The 2-bit wire byte of four labels (_pack2bits: voxel k at bits 2k).
+__device__ __forceinline__ unsigned pack4(unsigned lab) {
+  return (lab & 0x3u) | ((lab >> 6) & 0xcu) | ((lab >> 12) & 0x30u) | ((lab >> 18) & 0xc0u);
+}
+
+// grow[k] (Xp - x_lo, x_hi + 1, Yp - y_lo, y_hi + 1, Z - z_lo, z_hi + 1)
+// widened by the labelled voxels of one row: bits of zbits are z0, z0+1, ...
+__device__ __forceinline__ void grow_row(unsigned (&grow)[6], int row, int z0, unsigned zbits,
+                                         int Yp, int Xp, int Z) {
+  const int x = row / Yp, y = row - x * Yp;
+  const int lo = z0 + __ffs(zbits) - 1, hi = z0 + 31 - __clz(zbits);
+  grow[0] = max(grow[0], (unsigned)(Xp - x));
+  grow[1] = max(grow[1], (unsigned)(x + 1));
+  grow[2] = max(grow[2], (unsigned)(Yp - y));
+  grow[3] = max(grow[3], (unsigned)(y + 1));
+  grow[4] = max(grow[4], (unsigned)(Z - lo));
+  grow[5] = max(grow[5], (unsigned)(hi + 1));
+}
+
+// The {0,1,2} labelmap, its wire and its bbox. A grid of a few blocks an
+// SM strides over the volume: chunks of 16 z voxels first (16-byte loads
+// of liver and tumour, a 16-byte label store, a 4-byte wire store), then
+// the last n % 16 voxels, or every voxel when a pointer is not 16-byte
+// aligned (vec false), four at a time. The bbox grows in registers: a
+// labelled chunk inside one row costs one division and a bit scan; one
+// across rows (Z % 16 != 0) takes its four quads each in its own row. At
+// the end one warp-shuffle reduction a block, at most six atomicMax and
+// one ticket; the last block writes bbox and zeroes the counters.
+__global__ void __launch_bounds__(kThreads)
+compose_finish_kernel(const uint8_t* __restrict__ liver, const uint8_t* __restrict__ tumor,
+                      uint8_t* __restrict__ labels, uint8_t* __restrict__ wire,
+                      int* __restrict__ bbox, int Xp, int Yp, int Z, bool vec,
+                      unsigned int* __restrict__ counters) {
+  const int n = Xp * Yp * Z;
+  const int Qz = Z / 4;  // wire bytes (quads) a row
+  const int chunks = vec ? n / 16 : 0;
+  const int quads = n / 4;
+  const int stride = gridDim.x * kThreads;
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  unsigned grow[6] = {0u, 0u, 0u, 0u, 0u, 0u};
+  for (int c = tid; c < chunks; c += stride) {
+    const uint4 lv = reinterpret_cast<const uint4*>(liver)[c];
+    const uint4 tv = reinterpret_cast<const uint4*>(tumor)[c];
+    const uint4 lab = make_uint4(labels4(lv.x, tv.x), labels4(lv.y, tv.y), labels4(lv.z, tv.z),
+                                 labels4(lv.w, tv.w));
+    reinterpret_cast<uint4*>(labels)[c] = lab;
+    reinterpret_cast<unsigned*>(wire)[c] =
+        pack4(lab.x) | pack4(lab.y) << 8 | pack4(lab.z) << 16 | pack4(lab.w) << 24;
+    const unsigned m = nonzero_bytes(lab.x) | nonzero_bytes(lab.y) << 4 |
+                       nonzero_bytes(lab.z) << 8 | nonzero_bytes(lab.w) << 12;
+    if (m == 0u) continue;
+    const int row = (16 * c) / Z, z0 = 16 * c - row * Z;
+    if (z0 + 16 <= Z) {
+      grow_row(grow, row, z0, m, Yp, Xp, Z);
+    } else {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const unsigned lab = ((tv >> (8 * k)) & 1u) ? 2u : ((lv >> (8 * k)) & 1u);
-      out |= lab << (8 * k);
-      packed |= lab << (2 * k);
-      if (lab != 0u) {
-        lo = lo < k ? lo : k;
-        hi = k;
+      for (int j = 0; j < 4; ++j) {
+        const unsigned bits = (m >> (4 * j)) & 0xfu;
+        const int q = 4 * c + j;
+        const int r = q / Qz;
+        if (bits != 0u) grow_row(grow, r, 4 * (q - r * Qz), bits, Yp, Xp, Z);
       }
     }
-    *reinterpret_cast<unsigned*>(labels + 4 * t) = out;
-    wire[t] = (uint8_t)packed;
-    if (out != 0u) {
-      const int q = (int)(t % Q);
-      const int xy = (int)(t / Q);
-      const int y = xy % Yp, x = xy / Yp;
-      grow[0] = Xp - x;
-      grow[1] = x + 1;
-      grow[2] = Yp - y;
-      grow[3] = y + 1;
-      grow[4] = Z - (4 * q + lo);
-      grow[5] = 4 * q + hi + 1;
-    }
   }
+  for (int q = 4 * chunks + tid; q < quads; q += stride) {
+    const unsigned lab =
+        labels4(reinterpret_cast<const unsigned*>(liver)[q], reinterpret_cast<const unsigned*>(tumor)[q]);
+    reinterpret_cast<unsigned*>(labels)[q] = lab;
+    wire[q] = (uint8_t)pack4(lab);
+    const unsigned bits = nonzero_bytes(lab);
+    const int r = q / Qz;
+    if (bits != 0u) grow_row(grow, r, 4 * (q - r * Qz), bits, Yp, Xp, Z);
+  }
+  __shared__ unsigned warp_grow[kWarps][6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
-    const unsigned long long v = block_max(grow[k]);
-    if (threadIdx.x == 0 && v != 0ull) atomicMax(&counters[kBboxSlot + k], (unsigned)v);
-    __syncthreads();  // warp_max is reused by the next reduction
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) grow[k] = max(grow[k], __shfl_xor_sync(0xffffffffu, grow[k], o));
+  }
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) warp_grow[threadIdx.x >> 5][k] = grow[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < 6) {
+    unsigned v = 0u;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v = max(v, warp_grow[w][threadIdx.x]);
+    if (v != 0u) atomicMax(&counters[kBboxSlot + threadIdx.x], v);
   }
   if (!hdu::arrive_last(&counters[kBboxTicket], gridDim.x)) return;
   if (threadIdx.x == 0) {
@@ -711,17 +771,28 @@ extern "C" int hdu_compose_prep(const uint8_t* scores, const uint8_t* ext_bits, 
   return (int)cudaGetLastError();
 }
 
-// liver, tumor: (Xp, Yp, Z) bool, 4-byte aligned; labels: (Xp, Yp, Z) uint8
-// out {0,1,2}; wire: (Xp, Yp, Z/4) uint8 out; bbox: 6 int32 out; scratch:
-// hdu_scratch_bytes() bytes of the calling stream. One launch.
+// liver, tumor: (Xp, Yp, Z) bool; labels: (Xp, Yp, Z) uint8 out {0,1,2};
+// wire: (Xp, Yp, Z/4) uint8 out; bbox: 6 int32 out; scratch:
+// hdu_scratch_bytes() bytes of the calling stream. Every pointer 4-byte
+// aligned; 16-byte chunks where liver, tumor and labels are 16-byte
+// aligned. One launch of as many blocks as the card holds at once.
 extern "C" int hdu_compose_finish(const uint8_t* liver, const uint8_t* tumor, uint8_t* labels,
                                   uint8_t* wire, int* bbox, int Xp, int Yp, int Z,
                                   void* scratch, void* stream) {
+  auto misaligned = [](const void* p, uintptr_t a) { return reinterpret_cast<uintptr_t>(p) % a != 0; };
   if (Xp <= 0 || Yp <= 0 || Z <= 0 || Z % 4 != 0 || scratch == nullptr ||
-      (long long)Xp * Yp * Z >= (long long)INT_MAX)
+      (long long)Xp * Yp * Z >= (long long)INT_MAX || misaligned(liver, 4) ||
+      misaligned(tumor, 4) || misaligned(labels, 4) || misaligned(wire, 4))
     return (int)cudaErrorInvalidValue;
-  const long long threads = (long long)Xp * Yp * (Z / 4);
-  compose_finish_kernel<<<blocks_for(threads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      liver, tumor, labels, wire, bbox, Xp, Yp, Z, hdu::counters(scratch));
+  const bool vec = !misaligned(liver, 16) && !misaligned(tumor, 16) && !misaligned(labels, 16);
+  static int per_sm = 0;  // resident blocks an SM, the same on every device of one build
+  if (per_sm == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, compose_finish_kernel, kThreads, 0);
+    per_sm = per_sm > 0 ? per_sm : 1;
+  }
+  const long long work = vec ? (long long)Xp * Yp * Z / 16 + 3 : (long long)Xp * Yp * Z / 4;
+  const int blocks = (int)std::min<long long>(blocks_for(work), (long long)per_sm * hdu::sm_count());
+  compose_finish_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      liver, tumor, labels, wire, bbox, Xp, Yp, Z, vec, hdu::counters(scratch));
   return (int)cudaGetLastError();
 }

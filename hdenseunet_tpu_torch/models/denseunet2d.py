@@ -1,9 +1,16 @@
 """2D DenseUNet-167 (counterpart of hdenseunet_tpu/models/denseunet2d.py).
 
-DenseNet-161 encoder + 5-stage upsampling decoder, the current (no long skip
-connections) variant. One forward serves the 2D training stage (live BN,
-decoder dropout 0.3 at up4) and the hybrid's 2D branch (every BN frozen, no
-decoder dropout). Layer names are the reference graph's, byte for byte.
+DenseNet-161 encoder + 5-stage upsampling decoder. One forward serves the
+2D training stage (live BN, decoder dropout 0.3 at up4) and the hybrid's 2D
+branch (every BN frozen, no decoder dropout). Layer names are the reference
+graph's, byte for byte.
+
+Two decoders: the current one (reference densenet.py:10-101), with no long
+skip connections, and with ``skip_connections=True`` the legacy one
+(reference denseunet.py:130-227): a 1x1 conv 'line0' projects box[3]
+(concat_4) and is added at up0, and box[2], box[1], box[0] (concat_3,
+concat_2, relu1) are added at up1, up2, up3. The hybrid's 2D branch is the
+current one.
 """
 from __future__ import annotations
 
@@ -30,15 +37,19 @@ PRESETS = {
 
 
 class DenseUNet2D(nn.ModuleDict):
-    """The model is the dict of its reference-named layers, plus forward."""
+    """The model is the dict of its reference-named layers, plus forward.
+    ``skip_connections`` selects the legacy decoder (module docstring); its
+    adds need decoder widths 0-2 equal to box[2], box[1] and box[0]'s
+    channels, as the full layout's are (768, 384, 96)."""
 
     def __init__(
         self, *, in_channels=3, num_classes=3, reduction=0.5,
         blocks=ENC_BLOCKS, growth=GROWTH_RATE, decoder_widths=DECODER_WIDTHS,
-        device=None,
+        skip_connections=False, device=None,
     ):
         super().__init__()
         self.blocks = tuple(blocks)
+        self.skip_connections = skip_connections
         compression = 1.0 - reduction
 
         def conv(name, cin, cout, k, **kw):
@@ -62,10 +73,13 @@ class DenseUNet2D(nn.ModuleDict):
                 nb_filter += growth
             bn_scale(f"conv{stage}_blk", nb_filter)
             if block_idx < len(self.blocks) - 1:  # transition
+                box_channels = nb_filter  # the last is box[3]'s
                 out = int(nb_filter * compression)
                 conv(f"conv{stage}_blk", nb_filter, out, 1, padding="valid", use_bias=False)
                 nb_filter = out
         cin = nb_filter
+        if skip_connections:  # box[3]'s projection to the final features' width
+            conv("line0", box_channels, nb_filter, 1, padding="same", init="normal")
         for idx, width in enumerate(decoder_widths):
             conv(f"conv_up{idx}", cin, width, 3, padding="same", init="normal")
             self[f"bn_up{idx}"] = L.BatchNorm(width, eps=1e-3, device=device)
@@ -95,14 +109,16 @@ class DenseUNet2D(nn.ModuleDict):
         after every encoder conv and at ``decoder_dropout`` before bn_up4,
         and each conv block may be rematerialised (denseunet2d.py:46-218).
         ``taps``, when given a dict, records the reference graph's tap layers
-        (relu1, concat_{stage}_{n}, relu{S}_blk, ac_up4, dense167classifer)
-        for parity audits (weights/parity.py), each (B, H, W, C).
+        (relu1, concat_{stage}_{n}, relu{S}_blk, ac_up4, dense167classifer,
+        and the legacy decoder's line0) for parity audits (weights/parity.py),
+        each (B, H, W, C).
         """
         assert x.dim() == 4 and x.shape[1] % 32 == 0 and x.shape[2] % 32 == 0, x.shape
         frozen, rate = bn_frozen, block_dropout
         x = L.channels_last(x.movedim(-1, 1))
         x = self._bsr(self["conv1"](x), "conv1", ctx, frozen)
         L.tap(taps, "relu1", x)
+        box = [x]  # the encoder's skip features (denseunet.py:168-177)
         x = L.max_pool(x, 3, 2, pad=1)
         for block_idx, nb_layers in enumerate(self.blocks):
             stage = block_idx + 2
@@ -114,14 +130,23 @@ class DenseUNet2D(nn.ModuleDict):
                 x = L.channels_last(torch.cat([x, L.maybe_remat(ctx, block, x)], dim=1))
             if not last:
                 L.tap(taps, f"concat_{stage}_{nb_layers}", x)
+                box.append(x)
             x = self._bsr(x, f"conv{stage}_blk", ctx, frozen)
             if last:
                 L.tap(taps, f"relu{stage}_blk", x)
             else:  # transition (densenet.py:140-166)
                 x = L.maybe_dropout(ctx, self[f"conv{stage}_blk"](x), rate)
                 x = L.avg_pool(x, 2, 2)
-        for idx in range(5):  # UpSample2x -> Conv3x3 -> [Dropout] -> BN -> ReLU
-            x = self[f"conv_up{idx}"](L.upsample_nearest(x, 2))
+        skips = [None] * 5
+        if self.skip_connections:  # denseunet.py:189-209; up4 has none
+            skips[0] = self["line0"](box[3])
+            L.tap(taps, "line0", skips[0])
+            skips[1], skips[2], skips[3] = box[2], box[1], box[0]
+        for idx in range(5):  # UpSample2x -> [+skip] -> Conv3x3 -> [Dropout] -> BN -> ReLU
+            x = L.upsample_nearest(x, 2)
+            if skips[idx] is not None:
+                x = skips[idx] + x
+            x = self[f"conv_up{idx}"](x)
             if idx == 4:
                 x = L.maybe_dropout(ctx, x, decoder_dropout)
             x = torch.relu(self[f"bn_up{idx}"](x, ctx, frozen=frozen))

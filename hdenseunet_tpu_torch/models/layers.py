@@ -215,16 +215,21 @@ def count_flops(table: dict | None = None):
 
 class Conv(nn.Module):
     """N-d convolution (N = 2 or 3), kernel stored (O, I, *k). ``name`` is
-    the reference graph's layer name, the key of a FLOP table."""
+    the reference graph's layer name, the key of a FLOP table. ``dilation``
+    spaces the kernel's taps (dilated_resnet.py:18-33); padding and the
+    output size follow the dilated extent ``(k - 1) * dilation + 1``. The
+    dilated network pads ``(k - 1) * dilation // 2`` a side explicitly, as
+    the JAX package does, not 'same', whose split can be asymmetric."""
 
     def __init__(
-        self, cin, features, kernel, *, ndim, stride=1, padding="same",
+        self, cin, features, kernel, *, ndim, stride=1, padding="same", dilation=1,
         use_bias=True, init="glorot_uniform", name=None, device=None,
     ):
         super().__init__()
         self.name = name
         self.kernel_size = norm_tuple(kernel, ndim)
         self.stride = norm_tuple(stride, ndim)
+        self.dilation = norm_tuple(dilation, ndim)
         self.padding = padding
         self.ndim = ndim
         self.kernel = nn.Parameter(
@@ -236,12 +241,14 @@ class Conv(nn.Module):
         self.inits = {"kernel": init, "bias": "zeros"}
 
     def forward(self, x):
-        pads = conv_padding(x.shape[2:], self.kernel_size, self.stride, self.padding)
+        # the dilated kernel's extent; the MACs per output stay prod(kernel) * cin
+        span = [(k - 1) * d + 1 for k, d in zip(self.kernel_size, self.dilation)]
+        pads = conv_padding(x.shape[2:], span, self.stride, self.padding)
         counter = _flop_counter.get()
         if counter is not None:
             out = [
                 (s + lo + hi - k) // st + 1
-                for s, (lo, hi), k, st in zip(x.shape[2:], pads, self.kernel_size, self.stride)
+                for s, (lo, hi), k, st in zip(x.shape[2:], pads, span, self.stride)
             ]
             counter.add(self.name, (
                 2.0 * int(x.shape[0]) * float(np.prod(out)) * self.kernel.shape[0]
@@ -251,9 +258,9 @@ class Conv(nn.Module):
         b = None if self.bias is None else self.bias.to(x.dtype)
         conv = F.conv2d if self.ndim == 2 else F.conv3d
         if all(lo == hi for lo, hi in pads):
-            y = conv(x, w, b, self.stride, [lo for lo, _ in pads])
+            y = conv(x, w, b, self.stride, [lo for lo, _ in pads], self.dilation)
         else:
-            y = conv(channels_last(F.pad(x, _pad_arg(pads))), w, b, self.stride)
+            y = conv(channels_last(F.pad(x, _pad_arg(pads))), w, b, self.stride, 0, self.dilation)
         return channels_last(y)
 
 

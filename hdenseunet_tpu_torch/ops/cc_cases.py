@@ -7,6 +7,11 @@ Each case function takes a volume shape of at least two bricks on every axis
 ``tests/test_torch_cc_bricks.py`` holds the plain versions to the JAX
 package and scipy on them; ``chip_smoke.py`` holds the kernels to the plain
 versions, ``native/postprocess.cpp`` and :func:`scipy_min_labels`.
+
+:func:`compose_cases` and :func:`compose_shapes` are the edges of K4d's
+``compose_finish``, whose kernel strides over the volume in 16-voxel z
+chunks with a tail of 4-voxel quads: its bbox at the array's ends, empty
+and full maps, and z lengths that are not a multiple of 16.
 """
 from __future__ import annotations
 
@@ -126,3 +131,28 @@ def scipy_min_labels(m, conn: int):
     mins = np.full(n + 1, SENT, np.int64)
     np.minimum.at(mins, labels.ravel(), np.arange(m.size))
     return np.where(m, mins[labels], SENT).astype(np.int32)
+
+
+def compose_shapes() -> list[tuple[int, int, int]]:
+    """Volumes whose z length is 4, 8 or 12 modulo 16 (a 16-voxel chunk
+    spans rows), and an odd row count, so the voxel count is not a multiple
+    of 16 either (the 4-voxel tail)."""
+    return [(33, 17, z) for z in (4, 8, 12)] + [(9, 7, z) for z in (116, 120, 124)]
+
+
+def compose_cases(shape, seed: int = 0) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """(liver, tumour) bool (X, Y, Z) pairs for ``compose_finish``: an empty
+    map, one voxel at each of the 8 corners (tumour at the corners of odd
+    index sum, else liver), a map that fills the volume (liver, with tumour
+    over a random half), and sparse random liver and tumour."""
+    rng = np.random.default_rng(seed)
+    empty = np.zeros(shape, bool)
+    out = {"empty": (empty, empty)}
+    for corner_at in np.ndindex(2, 2, 2):
+        at = tuple(c * (s - 1) for c, s in zip(corner_at, shape))
+        one = np.zeros(shape, bool)
+        one[at] = True
+        out[f"corner {at}"] = (empty, one) if sum(corner_at) % 2 else (one, empty)
+    out["full"] = (np.ones(shape, bool), rng.random(shape) < 0.5)
+    out["random"] = (rng.random(shape) < 0.02, rng.random(shape) < 0.01)
+    return out

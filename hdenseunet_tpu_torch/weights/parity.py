@@ -4,8 +4,10 @@ hdenseunet_tpu/weights/parity.py): converted weights against a reference.
 * ``dump``: run the model on a fixed input in float32 and record the
   activation at every encoder stage boundary (relu1 and each dense block's
   output, the reference graph's ``box`` taps, densenet.py:60/:189), the
-  decoder feature map and the logits, into an npz; the 3D branch and the
-  hybrid's fusion boundary likewise;
+  decoder feature map and the logits, into an npz; the legacy
+  skip-connection 2D decoder (also its 'line0' projection), the 3D branch,
+  the hybrid's fusion boundary and the dilated residual network's logits
+  likewise;
 * ``compare``: diff two dumps tensor by tensor, with the max and mean
   absolute error of each and a pass/fail verdict.
 
@@ -59,12 +61,17 @@ def _run(model, params, bn_state, x, device, **kwargs) -> dict:
         return {name: t.float().cpu().numpy() for name, t in taps.items()}
 
 
-def dump_activations(params, bn_state, x, *, reduction=0.5, preset="full", device="cuda"):
+def dump_activations(
+    params, bn_state, x, *, reduction=0.5, preset="full", skip_connections=False, device="cuda"
+):
     """Run DenseUNet-2D and return {tap_name: activation} including decoder
-    feature map ('ac_up4') and logits ('dense167classifer')."""
+    feature map ('ac_up4') and logits ('dense167classifer'); with
+    ``skip_connections`` the legacy decoder, whose 'line0' is tapped too."""
     from ..models import denseunet2d
 
-    model = denseunet2d.DenseUNet2D(reduction=reduction, **denseunet2d.PRESETS[preset])
+    model = denseunet2d.DenseUNet2D(
+        reduction=reduction, skip_connections=skip_connections, **denseunet2d.PRESETS[preset]
+    )
     return _run(model, params, bn_state, x, device)
 
 
@@ -83,6 +90,17 @@ def dump_activations_hybrid(params, bn_state, vol, *, arch="end2end", preset="fu
     from ..models.hybrid import HDenseUNet
 
     return _run(HDenseUNet(preset=preset), params, bn_state, vol, device, arch=arch)
+
+
+def dump_activations_dilated(params, bn_state, x, *, device="cuda"):
+    """The dilated residual network's logits ('dr_head', its one stable tap:
+    the reference leaves every layer auto-named), at the widths of params."""
+    from ..models.dilated_resnet import DilatedResNet
+
+    widths = tuple(int(np.shape(params[f"{name}_c1" if name != "dr_stem" else name]["bias"])[0])
+                   for name in ("dr_stem", "dr_res1", "dr_res2", "dr_res3"))
+    model = DilatedResNet(in_channels=int(np.shape(x)[-1]), widths=widths)
+    return _run(model, params, bn_state, x, device)
 
 
 def compare_dumps(a_path, b_path, *, rtol=1e-3, atol=1e-3, log=print) -> bool:

@@ -15,10 +15,10 @@ from scipy import ndimage
 
 from hdenseunet_tpu.infer import device_postprocess as jdpp
 from hdenseunet_tpu.infer import postprocess as jpost
-from hdenseunet_tpu.infer.device_pipeline import DeviceVolumeScorer as JScorer, _unpack2bits
+from hdenseunet_tpu.infer.device_pipeline import DeviceVolumeScorer as JScorer, _pack2bits, _unpack2bits
 from hdenseunet_tpu_torch.infer import device_postprocess as dpp
 from hdenseunet_tpu_torch.infer.device_pipeline import DeviceVolumeScorer, unpack2bits
-from hdenseunet_tpu_torch.ops import cc
+from hdenseunet_tpu_torch.ops import cc, cc_cases
 
 SHAPES = [(16, 16, 12), (24, 20, 16)]
 DENSITIES = [0.08, 0.1, 0.35, 0.55, 0.85]
@@ -275,6 +275,22 @@ def test_compose_prep_and_finish_equal_jax_pieces():
     np.testing.assert_array_equal(_unpack2bits(wire.numpy()), want_labels)
     _, want_bbox = jdpp._bbox_finish(jnp.asarray(want_labels))
     np.testing.assert_array_equal(bbox.numpy(), np.asarray(want_bbox))
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16)] + cc_cases.compose_shapes())
+def test_compose_finish_edges_equal_jax(shape):
+    """compose_finish on the edges of its kernel's grid (ops/cc_cases.py:
+    empty and full maps, one voxel at each corner, z lengths 4, 8 and 12
+    modulo 16): the labelmap, the 2-bit wire (JAX's _pack2bits) and the
+    bbox (JAX's _bbox_finish) byte for byte."""
+    for name, (liver, tumor) in cc_cases.compose_cases(shape, seed=sum(shape)).items():
+        labels, wire, bbox = cc.compose_finish(_t(liver), _t(tumor))
+        want = np.where(tumor, 2, liver).astype(np.uint8)
+        np.testing.assert_array_equal(labels.numpy(), want, err_msg=name)
+        np.testing.assert_array_equal(wire.numpy(), np.asarray(_pack2bits(jnp.asarray(want))), err_msg=name)
+        np.testing.assert_array_equal(bbox.numpy(), np.asarray(jdpp._bbox_finish(jnp.asarray(want))[1]), err_msg=name)
+        if name == "empty":
+            assert bbox.tolist() == [shape[0], -1, shape[1], -1, shape[2], -1]
 
 
 def test_empty_compose_gives_an_empty_bbox():

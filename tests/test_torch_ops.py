@@ -406,14 +406,24 @@ def test_cuda_wce_matches_plain(cuda, n, dtype):
 
 
 def _device_kernels(fn) -> int:
-    """Kernels the card runs for one call of fn, counted by torch.profiler,
-    after a first call (which may make the stream's scratch buffer)."""
+    """Kernels one call of fn launches, counted by torch.profiler after a
+    first call (which may make the stream's scratch buffer): the runtime's
+    launch calls, which the profiler records on the host. The device's
+    kernel events, where the profiler kept any, must agree; it drops a lone
+    kernel whose device time stamps it maps outside its window, as it did
+    on the card in a process older than some seconds."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    events = prof.events()
+    launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+                   for e in events)
+    kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in events)
+    assert kernels in (0, launches), (kernels, launches)
+    return launches
 
 
 def _k1_backward_case(device, rows, c, dtype, relu=True, seed=0):
@@ -603,3 +613,23 @@ def test_cuda_compose_kernels_match_plain(cuda, x0, y0, xp, yp, zs, pack_z):
             out = cc.compose_finish(liver, tumor)
             ref = cc.compose_finish_reference(liver, tumor)
             assert all(torch.equal(a, b) for a, b in zip(out, ref)), (out[2], ref[2])
+
+
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("shape", [(16, 16, 16), (64, 48, 112)] + cc_cases.compose_shapes())
+def test_cuda_compose_finish_edges(cuda, shape, offset):
+    """compose_finish on the edges of its grid (ops/cc_cases.py): empty and
+    full maps, one voxel at each corner, z lengths 4, 8 and 12 modulo 16;
+    from a 4-byte storage offset the kernel takes its 4-voxel path. Bit for
+    bit against the plain version, twice (the counters reset)."""
+    for name, (liver, tumor) in cc_cases.compose_cases(shape, seed=sum(shape)).items():
+        args = []
+        for a in (liver, tumor):
+            flat = torch.zeros(a.size + 16, dtype=torch.bool, device=cuda)
+            t = flat[offset:offset + a.size].view(shape)
+            t.copy_(torch.from_numpy(a))
+            args.append(t)
+        want = cc.compose_finish_reference(*args)
+        for _ in range(2):
+            got = cc.compose_finish(*args)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (name, got[2], want[2])
