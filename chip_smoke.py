@@ -60,17 +60,30 @@ failure exits non-zero):
    run's StepTimer.stats over steps 2-4), then
    the end2end steps again under ``remat_policy='convs'`` (launches per
    step; ms/step, peak memory and losses beside the 'full' run's and a
-   second 'full' run's; one step of each policy from the same weights and
-   batch within phase 7's bars). A
+   second 'full' run's, equal to the first bit for bit; one step of each
+   policy from the same weights and batch within phase 7's bars). A
    recording wrapper on the autograd Functions notes the shape of every
    K1-backward and K2 call; each class of shape is then held against the
    plain version and timed alone with the L2 cache flushed, and the step's
-   summed kernel time is printed against its summed bound;
+   summed kernel time is printed against its summed bound; then the graph
+   phase (train_graph_end2end, train_graph_2d): ``train`` with
+   ``steps_per_dispatch`` 8 for 16 steps of each stage (the first group
+   eager, then one captured CUDA graph of the step replayed 8 times),
+   dropout live, against the same 16 steps eager, and a second eager run:
+   losses, parameters, moving statistics and momentum buffers equal bit for
+   bit; the ops torch names as nondeterministic in one step; the kernels'
+   launches inside the capture (one step's) and each kernel's first call
+   there held to its plain version after the last replay; eager against
+   graphed ms/step, the capture's seconds and pool bytes, peak memory,
+   device busy ms a step and idle share (torch.profiler);
 6. the CLI path: ``hdenseunet_tpu_torch.cli.main`` in this process, in a
    temporary directory under build/ that it removes: synth-data (two
    512x512x64 volumes), train 2d (4 steps, checkpoints), train end2end
    warm-started from the 2D checkpoint (4 steps, a save every 2), the same
-   run resumed (2 steps), test on one 512x512x64 NIfTI volume from the
+   run resumed (2 steps), the end2end run warm-started again with
+   ``--set train.steps_per_dispatch 8`` (16 steps: one eager group, one
+   replayed from a captured graph; cli_train_graph counts the captured
+   launches times the replays), test on one 512x512x64 NIfTI volume from the
    end2end checkpoint, the same test with ``--tiled 256``, and evaluate;
    full preset, bfloat16, batch 8 of
    real guided crops (224x224 slabs, 224x224x8 sub-volumes) through the
@@ -124,13 +137,15 @@ then a JSON line describing the kernels, and the last line
 
 Each path of phases 4-6, 8 and 9 (serve, serve_dpp, serve_dpp_dense,
 serve_per_window, serve_shared_2d, serve_uint8, serve_host_loop, serve_tiled,
-mfu, trace, train_*, train_end2end_convs, cli_*, cli_test_tiled, parity,
+mfu, trace, train_*, train_end2end_convs, train_graph_*, cli_*, cli_test_tiled, parity,
 variants_legacy_serve, variants_legacy_train, variants_dilated,
 variants_parity, train_dp_w1_*, train_dp_w2_*, serve_dp_w2, cli_train_dp,
 cli_train_dp_resume)
 runs with every launch counter set to 0 just before it and read just after
 (in the process that runs it), and fails if a kernel of that path did not
-launch.
+launch. A replayed CUDA graph launches its kernels without the wrappers:
+train_graph_* counts the eager group's launches and the captured step's
+times its replays.
 """
 from __future__ import annotations
 
@@ -146,6 +161,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from collections import Counter
 from pathlib import Path
 
@@ -175,6 +191,9 @@ TRAIN_UPDATE_RTOL = 5e-2
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TRAIN_STEPS = 4
+# steps_per_dispatch of the graph phase and its run: the first group runs
+# eagerly (the warm-up), the second replays one captured step
+GRAPH_K, GRAPH_STEPS = 8, 16
 CLI_SHAPE = (512, 512, 64)  # LiTS in-plane size; 64 slices
 CLI_STEPS, CLI_RESUME_STEPS = 4, 2
 LAYERS_2D = 493  # layers of the full 2D DenseUNet, every one named in the hybrid
@@ -353,18 +372,10 @@ def check_k1(card: str) -> dict:
         got = K.affine_relu(x, scale, shift, relu=relu)
         want = K.affine_relu_reference(x, scale, shift, relu=relu)
         torch.cuda.synchronize()
-        a = scale.to(dtype).float().view([1, -1] + [1] * (x.dim() - 2))
-        tol = (
-            torch.finfo(dtype).eps * want.float().abs()
-            + ULP_FP32 * (x.float() * a).abs()
-            + torch.finfo(dtype).tiny
-        )
-        diff = (got.float() - want.float()).abs()
-        assert got.stride() == x.stride(), (label, got.stride(), x.stride())
-        assert bool((diff <= tol).all()), f"K1 disagrees at {label}: max {diff.max()}"
-        err = float(diff.max())
+        err = k1_error(got, want, x, scale, label)
         worst = max(worst, err)
-        path = "vector" if K.vector_path(x, got, a.flatten(), a.flatten()) else "scalar"
+        a = scale.to(dtype).float()
+        path = "vector" if K.vector_path(x, got, a, a) else "scalar"
         paths.add(path)
         ms, plain_ms = in_turns(
             lambda: K.affine_relu(x, scale, shift, relu=relu),
@@ -380,6 +391,41 @@ def check_k1(card: str) -> dict:
             first["kernels_per_call"] = kernels_per_call(lambda: K.affine_relu(x, scale, shift))
     assert paths == {"vector", "scalar"}, paths
     return dict(max_abs_err=worst, **first)
+
+
+def k1_error(got, want, x, scale, label: str) -> float:
+    """Hold K1 to its plain version: within one ulp of the result in the
+    working dtype, plus one float32 ulp of x*A (the kernel's fused
+    multiply-add against two roundings). Returns the largest error."""
+    a = scale.to(x.dtype).float().view([1, -1] + [1] * (x.dim() - 2))
+    tol = (
+        torch.finfo(x.dtype).eps * want.float().abs()
+        + ULP_FP32 * (x.float() * a).abs()
+        + torch.finfo(x.dtype).tiny
+    )
+    diff = (got.float() - want.float()).abs()
+    assert got.stride() == x.stride(), (label, got.stride(), x.stride())
+    assert bool((diff <= tol).all()), f"K1 disagrees at {label}: max {diff.max()}"
+    return float(diff.max())
+
+
+def k2_errors(loss, cnt, d, logits, labels, mask, w, g, label: str) -> tuple[float, float]:
+    """Hold K2's forward (loss, sum of the mask) and backward (d) to their
+    plain versions: the sum of the mask exact; the loss, float32 sums of n
+    terms in other orders, within 1e-5 of it; dlogits within one ulp of the
+    dtype plus 8 float32 ulps of the largest class weight over the sum of
+    the mask. Returns the loss's and dlogits' largest errors."""
+    from hdenseunet_tpu_torch.ops import wce as W
+
+    loss_p, cnt_p = W.weighted_ce_reference(logits, labels, mask, w)
+    d_p = W.weighted_ce_backward_reference(logits, labels, mask, w, cnt, g)
+    assert float(cnt) == float(cnt_p), (label, float(cnt), float(cnt_p))
+    loss_err = abs(float(loss) - float(loss_p))
+    assert loss_err <= 1e-5 * abs(float(loss_p)), (label, float(loss), float(loss_p))
+    d_err = (d.float() - d_p.float()).abs()
+    tol = torch.finfo(logits.dtype).eps * d_p.float().abs() + 8 * ULP_FP32 * float(w.max()) / float(cnt_p)
+    assert bool((d_err <= tol).all()), f"K2 backward at {label}: max {d_err.max()}"
+    return loss_err, float(d_err.max())
 
 
 def k1_backward_case(rows: int, c: int, dtype, relu: bool, gen):
@@ -489,29 +535,20 @@ def check_k2(card: str) -> tuple[dict, dict]:
         logits, labels, mask = wce_case(n, dtype, gen, depth=depth)
         g = torch.tensor(1.0, device="cuda")
         loss, cnt = W.wce_forward(logits, labels, mask, w)
-        loss_p, cnt_p = W.weighted_ce_reference(logits, labels, mask, w)
         d = W.wce_backward(logits, labels, mask, w, cnt, g)
-        d_p = W.weighted_ce_backward_reference(logits, labels, mask, w, cnt_p, g)
         torch.cuda.synchronize()
-        assert float(cnt) == float(cnt_p), (label, float(cnt), float(cnt_p))
-        loss_err = abs(float(loss) - float(loss_p))
-        # float32 sums of n terms in other orders
-        assert loss_err <= 1e-5 * abs(float(loss_p)), (label, float(loss), float(loss_p))
-        eps = torch.finfo(dtype).eps
-        d_err = (d.float() - d_p.float()).abs()
-        tol = eps * d_p.float().abs() + 8 * ULP_FP32 * 8.57 / float(cnt_p)
-        assert bool((d_err <= tol).all()), f"K2 backward at {label}: max {d_err.max()}"
+        loss_err, d_err = k2_errors(loss, cnt, d, logits, labels, mask, w, g, label)
         assert not d[0].any(), "the clip-active row took a gradient"
         fwd = in_turns(lambda: W.wce_forward(logits, labels, mask, w),
                        lambda: W.weighted_ce_reference(logits, labels, mask, w))
         bwd = in_turns(lambda: W.wce_backward(logits, labels, mask, w, cnt, g),
-                       lambda: W.weighted_ce_backward_reference(logits, labels, mask, w, cnt_p, g))
+                       lambda: W.weighted_ce_backward_reference(logits, labels, mask, w, cnt, g))
         row = 3 * logits.element_size() + 4 + 4  # logits, label, mask
         b_fwd = bound(n * row + 3 * 4 + 2 * 4, n * (6 * 3 + 6))
         b_bwd = bound(n * (row + 3 * logits.element_size()) + 3 * 4 + 2 * 4, n * (8 * 3 + 8))
         print(
             f"K2 {label} {str(dtype)[6:]} N={n}: loss err {loss_err:.3g}, dlogits max_abs_err "
-            f"{float(d_err.max()):.3g}; forward {fwd[0]:.4f} ms vs plain {fwd[1]:.4f} ms, "
+            f"{d_err:.3g}; forward {fwd[0]:.4f} ms vs plain {fwd[1]:.4f} ms, "
             f"bound {b_fwd['bound_ms']:.4f} ms ({b_fwd['bound_by']}); backward {bwd[0]:.4f} ms "
             f"vs plain {bwd[1]:.4f} ms, bound {b_bwd['bound_ms']:.4f} ms ({b_bwd['bound_by']}) [{card}]"
         )
@@ -522,7 +559,7 @@ def check_k2(card: str) -> tuple[dict, dict]:
             bwd_out["kernels_per_call"] = kernels_per_call(
                 lambda: W.wce_backward(logits, labels, mask, w, cnt, g))
         fwd_out["max_abs_err"] = max(fwd_out["max_abs_err"], loss_err)
-        bwd_out["max_abs_err"] = max(bwd_out["max_abs_err"], float(d_err.max()))
+        bwd_out["max_abs_err"] = max(bwd_out["max_abs_err"], d_err)
     return fwd_out, bwd_out
 
 
@@ -1542,9 +1579,8 @@ def train_convs_path(card: str, full: dict) -> dict:
     block's checkpoint keeps its convolutions' outputs; only the
     BN/Scale/ReLU/dropout chain reruns): the same launches per step as the
     'full' run; ms/step and peak memory beside the 'full' run's; its losses
-    beside the 'full' run's and a second 'full' run's, whose gap is the
-    card's own run-to-run spread (neither policy repeats its losses past
-    the first step: sums by float atomics in the backward reorder). Then one
+    beside the 'full' run's and a second 'full' run's, which must equal
+    the first run's bit for bit (the step repeats itself). Then one
     step of each policy from the same seeded weights and batch, held to
     phase 7's bars for a step against another. Returns the launch counts."""
     steps = TRAIN_STEPS
@@ -1556,6 +1592,7 @@ def train_convs_path(card: str, full: dict) -> dict:
     assert abs(convs["losses"][0] - full["losses"][0]) <= 1e-5 * abs(full["losses"][0])
     gap = max(abs(a - b) for a, b in zip(convs["losses"], full["losses"]))
     spread = max(abs(a - b) for a, b in zip(again["losses"], full["losses"]))
+    assert again["losses"] == full["losses"], ("two 'full' runs differ", again["losses"], full["losses"])
     del again
 
     runs = {}
@@ -1571,6 +1608,253 @@ def train_convs_path(card: str, full: dict) -> dict:
           f"two 'full' runs; one step from the same weights and batch: loss {loss_c:.7g} against "
           f"{loss_f:.7g}, worst update error {worst:.3g} of its tensor's update norm [{card}]")
     return convs["launches"]
+
+
+@contextlib.contextmanager
+def first_calls():
+    """While open, keep the arguments and outputs of the first call of each
+    of K1, K1's backward and K2's forward and backward: the module's
+    wrappers are swapped for recorders that call them (the launch counts
+    carry over). Tensors made inside a CUDA graph's capture stay held, so
+    after a replay they hold that replay's values."""
+    from hdenseunet_tpu_torch.ops import fused_affine as K, wce as W
+
+    kept, swapped = {}, []
+    for module, name in ((K, "affine_relu"), (K, "affine_relu_backward"),
+                         (W, "wce_forward"), (W, "wce_backward")):
+        wrapped = getattr(module, name)
+
+        def recorder(*args, _fn=wrapped, _name=name, **kwargs):
+            out = _fn(*args, **kwargs)
+            kept.setdefault(_name, (args, kwargs, out))
+            return out
+
+        recorder.launches = wrapped.launches
+        setattr(module, name, recorder)
+        swapped.append((module, name, wrapped, recorder))
+    try:
+        yield kept
+    finally:
+        for module, name, wrapped, recorder in swapped:
+            wrapped.launches = recorder.launches
+            setattr(module, name, wrapped)
+
+
+def hold_graphed_calls(kept: dict) -> dict:
+    """Each kernel's output at its first call inside the captured step, as
+    the last replay left it, against its plain version on the same inputs
+    (phase 3's bars). Returns each kernel's largest error."""
+    from hdenseunet_tpu_torch.ops import fused_affine as K
+
+    errors = {}
+    if "affine_relu" in kept:
+        (x, scale, shift), kw, y = kept["affine_relu"]
+        want = K.affine_relu_reference(x, scale, shift, **kw)
+        errors["affine_relu"] = k1_error(y, want, x, scale, "graphed K1")
+    if "affine_relu_backward" in kept:
+        (g, x, scale, y), kw, got = kept["affine_relu_backward"]
+        want = K.affine_relu_backward_reference(g, x, scale, y, **kw)
+        errors["affine_relu_backward"] = k1_backward_error(got, want, g, x, "graphed K1 backward")
+    (logits, labels, mask, w), _, (loss, cnt) = kept["wce_forward"]
+    (_, _, _, _, cnt_b, g), _, d = kept["wce_backward"]
+    errors["wce_forward"], errors["wce_backward"] = k2_errors(
+        loss, cnt, d, logits, labels, mask, w, g, "graphed K2")
+    assert float(cnt_b) == float(cnt)
+    return errors
+
+
+def nondeterministic_ops(arch: str) -> list[str]:
+    """The ops torch names as having no deterministic CUDA form in one step
+    of phase 5's configuration (``torch.use_deterministic_algorithms(True,
+    warn_only=True)``, which also makes cuDNN take deterministic
+    algorithms)."""
+    from hdenseunet_tpu_torch.train.trainer import create_train_state, train_step
+
+    cfg = train_config(arch)
+    batch = global_batches(cfg, 1)[0]
+    state = create_train_state(cfg, arch, device="cuda", seed=SEED)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            float(train_step(state, batch, cfg))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    named = {str(w.message).split(" does not have a deterministic")[0]
+             for w in caught if "deterministic" in str(w.message)}
+    return sorted(named)
+
+
+def device_busy_ms(prof) -> tuple[float, int]:
+    """Summed device time of the kernels, copies and sets a torch.profiler
+    profile recorded, and their number."""
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events)
+
+
+def graph_run(arch: str, k: int, *, profile: bool = False) -> dict:
+    """``train`` for GRAPH_STEPS steps of phase 5's configuration (dropout
+    live) at ``steps_per_dispatch`` k, the losses drained (a sync) every
+    GRAPH_K steps. Returns the losses, the final parameters, buffers and
+    momentum buffers (clones on the card), the launches, the ms/step over
+    steps 9-16 (from the fetch of batch 9 to the end, less the capture)
+    and the peak memory; for k > 1 the capture's seconds, the memory it
+    reserved (the graph's pool), its launches and the first kernel calls
+    inside it (``first_calls``), and the replayed group's wall; with
+    ``profile``, device busy ms a step over steps 9-16 and the idle share
+    of their wall (torch.profiler)."""
+    from hdenseunet_tpu_torch.train import trainer as T
+
+    cfg = train_config(arch)
+    cfg.train.steps_per_dispatch, cfg.train.log_every_steps = k, GRAPH_K
+    cfg.train.save_path = str(BUILD / "chip_smoke_graph" / f"{arch}_{k}")
+    batches = global_batches(cfg, GRAPH_STEPS)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out = dict(losses=[], capture=None)
+    fetched, prof = [], []
+
+    def start_profile():
+        if profile:
+            prof.append(torch.profiler.profile(activities=acts))
+            prof[0].__enter__()
+            out["profiled_from"] = time.perf_counter()
+
+    def feed():
+        for i, batch in enumerate(batches):
+            if i == GRAPH_K and k == 1:
+                start_profile()
+            fetched.append(time.perf_counter())
+            yield batch
+
+    check, capture, call = T.NaNGuard.check, T.MultiStep._capture, T.MultiStep.__call__
+
+    def checked(self, loss, step):
+        out["losses"].append(loss)
+        return check(self, loss, step)
+
+    def captured(self, stacked):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved, before = torch.cuda.memory_reserved(), read_counts()
+        with first_calls() as kept:
+            capture(self, stacked)
+        out["capture"] = dict(
+            seconds=self.capture_seconds, pool_bytes=torch.cuda.memory_reserved() - reserved,
+            launches={n: c - before[n] for n, c in read_counts().items()}, kept=kept,
+        )
+        start_profile()
+        out["replay_from"] = time.perf_counter()
+
+    def called(self, stacked):
+        losses = call(self, stacked)
+        if self.replays and "replay_wall" not in out:
+            torch.cuda.synchronize()
+            out["replay_wall"] = time.perf_counter() - out["replay_from"]
+        return losses
+
+    history = Path(cfg.train.save_path) / "history" / "lossbatch.txt"
+    history.unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    T.NaNGuard.check, T.MultiStep._capture, T.MultiStep.__call__ = checked, captured, called
+    try:
+        state = T.train(cfg, feed(), max_steps=GRAPH_STEPS, device="cuda", log_fn=lambda *a: None)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    finally:
+        T.NaNGuard.check, T.MultiStep._capture, T.MultiStep.__call__ = check, capture, call
+        if prof:
+            prof[0].__exit__(None, None, None)
+    out["launches"] = read_counts()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    capture_s = out["capture"]["seconds"] if out["capture"] else 0.0
+    out["ms"] = (end - fetched[GRAPH_K] - capture_s) / (GRAPH_STEPS - GRAPH_K) * 1e3
+    if prof:
+        busy, events = device_busy_ms(prof[0])
+        wall = (out["replay_wall"] if k > 1 else end - out["profiled_from"]) * 1e3
+        n = GRAPH_STEPS - GRAPH_K
+        out.update(busy_ms=busy / n, idle=1 - busy / wall, events=events // n, profiled_ms=wall / n)
+    assert len(out["losses"]) == GRAPH_STEPS and all(np.isfinite(out["losses"])), out["losses"]
+    out["state"] = {
+        **{f"model.{name}": t.detach().clone() for name, t in state.model.state_dict().items()},
+        **{f"momentum.{i}": slot["momentum_buffer"].clone()
+           for i, slot in enumerate(state.optimizer.state.values())},
+    }
+    return out
+
+
+def differing(a: dict, b: dict) -> list[str]:
+    """Names of the tensors of two ``graph_run`` states that differ in any bit."""
+    assert a.keys() == b.keys()
+    return [name for name in a if not torch.equal(a[name], b[name])]
+
+
+def graph_path(card: str) -> dict:
+    """The graph phase: end2end and the 2D stage at full width, K = GRAPH_K,
+    GRAPH_STEPS steps (the first group eager, then one captured step
+    replayed GRAPH_K times) against the same steps eager (K = 1) from the
+    same seeded weights and batches, dropout live: losses, parameters,
+    moving statistics and momentum buffers equal bit for bit; a second
+    eager run equal to the first bit for bit. The ops torch names as having
+    no deterministic CUDA form in one step. Inside the capture each kernel
+    launches its per-step count, and each one's first call there, after the
+    last replay, is held to its plain version. Prints ms/step eager and
+    graphed, the capture's seconds and the graph pool's bytes, peak memory,
+    device busy ms a step and the idle share (torch.profiler: the eager
+    repeat's steps 9-16, the replayed group). Returns the launches per
+    path: the eager group's through the wrappers' counters, the replayed
+    steps' as the captured launches times the replays."""
+    per_step = {
+        "end2end": dict(affine_relu=BSR_2D + REMAT_2D, affine_relu_backward=BSR_2D,
+                        wce_forward=1, wce_backward=1),
+        "2d": dict(wce_forward=1, wce_backward=1),
+    }
+    replays = GRAPH_STEPS - GRAPH_K
+    paths = {}
+    for arch in ("end2end", "2d"):
+        named = nondeterministic_ops(arch)
+        eager = graph_run(arch, 1)
+        graphed = graph_run(arch, GRAPH_K, profile=True)
+        cap = graphed.pop("capture")
+        errors = hold_graphed_calls(cap.pop("kept"))
+        again = graph_run(arch, 1, profile=True)
+        want = only(**{n: c * GRAPH_STEPS for n, c in per_step[arch].items()})
+        assert eager["launches"] == again["launches"] == want, (arch, eager["launches"], want)
+        assert cap["launches"] == only(**per_step[arch]), (arch, cap["launches"])
+        assert graphed["launches"] == only(**{n: c * (GRAPH_K + 1) for n, c in per_step[arch].items()}), (
+            arch, graphed["launches"])
+        ran = {n: graphed["launches"][n] - cap["launches"][n] + cap["launches"][n] * replays
+               for n in graphed["launches"]}
+        assert ran == want, (arch, ran)
+        paths[f"train_graph_{arch}"] = ran
+        repeat = differing(eager["state"], again["state"])
+        graph_vs_eager = differing(eager["state"], graphed["state"])
+        print(
+            f"graph {arch}: steps_per_dispatch {GRAPH_K}, {GRAPH_STEPS} steps (steps 1-{GRAPH_K} eager, "
+            f"{GRAPH_K + 1}-{GRAPH_STEPS} replayed), full preset bf16 remat, batch 8, dropout live: "
+            f"eager {eager['ms']:.1f} ms/step, graphed {graphed['ms']:.1f} ms/step over steps "
+            f"{GRAPH_K + 1}-{GRAPH_STEPS} (replayed group alone {graphed['replay_wall'] / replays * 1e3:.1f}); "
+            f"capture {cap['seconds']:.2f} s, graph pool {cap['pool_bytes'] / 2**30:.2f} GiB, peak "
+            f"{graphed['peak'] / 2**30:.2f} GiB against eager {eager['peak'] / 2**30:.2f}; device busy "
+            f"{graphed['busy_ms']:.1f} ms/step, idle {100 * graphed['idle']:.1f} % ({graphed['events']} device "
+            f"events a step) against eager {again['busy_ms']:.1f} ms/step, idle {100 * again['idle']:.1f} % "
+            f"({again['events']} events; profiled {again['profiled_ms']:.1f} ms/step); captured launches "
+            f"a step {cap['launches']}, ran {ran}; graphed calls against plain {errors}; "
+            f"torch's nondeterministic ops in a step: {named or 'none'} [{card}]"
+        )
+        print(f"graph {arch}: losses eager {eager['losses']}")
+        assert graphed["losses"] == eager["losses"], (arch, graphed["losses"])
+        assert not graph_vs_eager, (arch, "graphed steps differ from eager ones", graph_vs_eager[:10])
+        assert again["losses"] == eager["losses"], (arch, "eager steps do not repeat", again["losses"])
+        assert not repeat, (arch, "eager steps do not repeat", repeat[:10])
+        print(f"graph {arch}: graphed and repeated eager runs equal the eager run bit for bit: "
+              f"{GRAPH_STEPS} losses, {len(eager['state'])} tensors (parameters, moving statistics, "
+              f"momentum buffers) [{card}]")
+        del eager, graphed, again
+        torch.cuda.empty_cache()
+    return paths
 
 
 @contextlib.contextmanager
@@ -1800,6 +2084,19 @@ def cli_path(card: str, synthetic_ms: dict, bsr_per_forward: int) -> dict:
         assert state.step == CLI_STEPS + CLI_RESUME_STEPS
         del state, saved, restored
 
+        # steps_per_dispatch through the CLI and the device prefetch: the
+        # first group eager, the second replayed from the captured step
+        state, text = run_cli(["train", "--arch", "end2end", "--max-steps", str(GRAPH_STEPS),
+                               "--init-from", str(ck2d), "--set", "train.save_path", str(root / "expg"),
+                               *common, "--set", "train.steps_per_dispatch", str(GRAPH_K)])
+        counted = read_counts()
+        replays = GRAPH_STEPS - GRAPH_K
+        assert f"steps_per_dispatch {GRAPH_K}: {GRAPH_STEPS} steps in groups, {replays} of them replayed" in text, text
+        assert counted == only(**{k: n * (GRAPH_K + 1) for k, n in per_step.items()}), counted
+        launches["cli_train_graph"] = only(**{k: n * GRAPH_STEPS for k, n in per_step.items()})
+        assert state.step == GRAPH_STEPS
+        del state
+
         dirs = {d: root / d for d in ("tv", "tm", "truth")}
         for d in dirs.values():
             d.mkdir()
@@ -1928,7 +2225,7 @@ def train_check(card: str) -> None:
     cfg.model.preset, cfg.model.input_size, cfg.train.batch = "tiny", 32, 2
     batch = next(synthetic_batches(mode="hybrid", batch=2, input_size=32, input_cols=8, seed=SEED))
     dropout = L.dropout
-    L.dropout = lambda x, rate, generator=None: x
+    L.dropout = lambda x, rate, seed=None: x
     try:
         states, losses, deltas = [], [], []
         for device in ("cpu", "cuda"):
@@ -2379,6 +2676,7 @@ def main() -> None:
         synthetic_ms[arch] = runs[arch]["ms"]
     paths["train_end2end_convs"] = train_convs_path(card, runs["end2end"])
     del runs
+    paths.update(graph_path(card))
     paths.update(cli_path(card, synthetic_ms, bsr_per_forward))
     k1_bwd.update(sweep_k1_backward(card, calls["train_end2end"]["k1"], TRAIN_STEPS))
     k1_bwd["steps"] = {"train_end2end": dict(

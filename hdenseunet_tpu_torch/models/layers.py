@@ -15,11 +15,19 @@ A forward takes ``ctx``: None for inference semantics (every BatchNorm uses
 its moving statistics, dropout is the identity), or a :class:`Ctx` for
 training (the JAX ``Ctx`` under ``train=True``): live BatchNorms normalise
 with batch statistics and write their new moving statistics into
-``ctx.new_stats``, dropout draws from ``ctx.generator``, and ``ctx.remat``
-checkpoints every conv block (:func:`maybe_remat`). Under a data-parallel
-``ctx.mesh`` of several ranks (``core/mesh.py``) each rank holds its rows of
-the global batch: live statistics are the global batch's, and each rank's
-dropout mask is its rows of the mask one process would draw.
+``ctx.new_stats``, dropout masks are a hash of ``ctx.seed`` (a tensor on the
+device) and each element's index, and ``ctx.remat`` checkpoints every conv
+block (:func:`maybe_remat`). Under a data-parallel ``ctx.mesh`` of several
+ranks (``core/mesh.py``) each rank holds its rows of the global batch: live
+statistics are the global batch's, and each rank's dropout mask is its rows
+of the mask one process would draw.
+
+Nothing in a training step reads the device back or draws from a host
+generator, so a step can be captured in a CUDA graph and replayed
+(``train/trainer.py``), and its backward repeats itself bit for bit: the
+3D max pool and the average pools have backwards that sum in a fixed order
+(:func:`max_pool`, :func:`avg_pool`), where torch's CUDA backwards add with
+atomics.
 
 Inside :func:`count_flops` every :class:`Conv` forward adds its FLOPs to
 the open counter, the hook ``utils/flops.py`` counts the real graph with.
@@ -45,6 +53,32 @@ from ..core.mesh import all_reduce_sum, axis_group, axis_rank, axis_size
 from ..ops.fused_affine import AffineReLU, fold_bn_scale
 
 _FORMATS = {4: torch.channels_last, 5: torch.channels_last_3d}
+# The dropout hash (a lowbias32-style mixer): odd multipliers below 2^31, so
+# that a 32-bit value times one stays below 2^63 and int64 arithmetic is
+# exact on the CPU and on the card alike
+_M32 = 0xFFFFFFFF
+_MIX = (0x7FEB352D, 0x6A09E667)
+_KEEP_BITS = 24  # a mask compares the hash's top 24 bits with keep * 2^24
+
+
+def hash32(x: torch.Tensor) -> torch.Tensor:
+    """The 32-bit mixer over an int64 tensor of values in [0, 2^32), in
+    place on x, which it returns."""
+    x.bitwise_xor_(x >> 16)
+    x.mul_(_MIX[0]).bitwise_and_(_M32)
+    x.bitwise_xor_(x >> 15)
+    x.mul_(_MIX[1]).bitwise_and_(_M32)
+    return x.bitwise_xor_(x >> 16)
+
+
+def _host_hash32(v: int) -> int:
+    """:func:`hash32` of one Python int."""
+    v &= _M32
+    v ^= v >> 16
+    v = (v * _MIX[0]) & _M32
+    v ^= v >> 15
+    v = (v * _MIX[1]) & _M32
+    return v ^ (v >> 16)
 
 
 class Ctx:
@@ -55,20 +89,20 @@ class Ctx:
     (mean, variance). BatchNorm *assigns* its entry, so a conv block that a
     checkpoint recomputes during the backward writes the same values again
     instead of applying the update twice; the trainer copies the dict into
-    the buffers after the optimizer step. Dropout draws from ``generator``,
-    a generator on ``device`` seeded from ``seed`` when first used.
-    ``remat_policy`` is TrainConfig's: 'full' or 'convs' (:func:`maybe_remat`).
-    ``mesh`` is the data-parallel mesh the batch is split over, or None;
-    ``group`` and ``shard`` are set only when it has several ranks: the
-    process group that live statistics reduce over, and (rank, ranks) for
-    dropout.
+    the buffers after the optimizer step. ``seed`` is the step's seed: an
+    int, or a 0-d int64 tensor on ``device`` (the trainer's, so that a
+    captured step reads a new seed on every replay); :attr:`seed` gives its
+    32-bit hash as a tensor on ``device``. ``remat_policy`` is
+    TrainConfig's: 'full' or 'convs' (:func:`maybe_remat`). ``mesh`` is the
+    data-parallel mesh the batch is split over, or None; ``group`` and
+    ``shard`` are set only when it has several ranks: the process group
+    that live statistics reduce over, and (rank, ranks) for dropout.
     """
 
     def __init__(
-        self, seed: int, *, device, remat: bool = False, remat_policy: str = "full",
+        self, seed, *, device, remat: bool = False, remat_policy: str = "full",
         new_stats=None, mesh=None,
     ):
-        self.seed = int(seed)
         self.device = torch.device(device)
         self.remat = remat
         self.remat_policy = remat_policy
@@ -77,33 +111,40 @@ class Ctx:
         several = axis_size(mesh) > 1
         self.group = axis_group(mesh) if several else None
         self.shard = (axis_rank(mesh), axis_size(mesh)) if several else None
-        self._generator = None
+        self._seed = seed
+        self._hashed = None
         self._children = 0
 
     @property
-    def generator(self) -> torch.Generator:
-        if self._generator is None:
-            self._generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        return self._generator
+    def seed(self) -> torch.Tensor:
+        """This context's 32-bit seed, a 0-d int64 tensor on the device,
+        hashed on first use: from the step's seed at the root, from the
+        parent's and the child index in a conv block (:meth:`child_seed`)."""
+        if self._hashed is None:
+            seed = self._seed() if callable(self._seed) else self._seed
+            seed = torch.as_tensor(seed, dtype=torch.int64).to(self.device, non_blocking=True)
+            self._hashed = hash32((seed ^ (seed >> 32)) & _M32)
+        return self._hashed
 
-    def child_seed(self) -> int:
-        """The seed of the next conv block's context, drawn from this one's
-        (core/module.py:204-207)."""
+    def child_seed(self):
+        """The seed of the next conv block's context (core/module.py:204-207):
+        a function that hashes this context's seed with the block's index on
+        the device when a block draws a mask, and not before."""
         self._children += 1
-        seed = np.random.SeedSequence([self.seed, self._children]).generate_state(1, np.uint64)[0]
-        return int(seed) >> 1
+        salt = _host_hash32(self._children)
+        return lambda: self.seed ^ salt
 
 
 def maybe_remat(ctx: Ctx | None, fn, x):
     """``fn(sub_ctx, x)`` for one conv block (core/module.py:187-234).
 
     The block gets a context of its own: the same ``new_stats``, no remat,
-    and a generator seeded from :meth:`Ctx.child_seed`, made anew on every
-    run of the block. Under ``ctx.remat`` with autograd on, the block runs in
-    a non-reentrant checkpoint: nothing inside it is saved and it reruns
-    during the backward, where it draws the same dropout masks and assigns
-    the same BatchNorm statistics again. Its parameters are not recomputed.
-    Remat on or off, the masks are the same.
+    and a seed derived from this context's (:meth:`Ctx.child_seed`), made
+    anew on every run of the block. Under ``ctx.remat`` with autograd on, the
+    block runs in a non-reentrant checkpoint: nothing inside it is saved and
+    it reruns during the backward, where it draws the same dropout masks and
+    assigns the same BatchNorm statistics again. Its parameters are not
+    recomputed. Remat on or off, the masks are the same.
 
     ``ctx.remat_policy == 'convs'`` makes the checkpoint selective
     (core/module.py:222-229): every convolution's output is saved, and only
@@ -413,21 +454,96 @@ def unfreeze_bn_scale(model: nn.Module):
 
 
 def max_pool(x, window, stride, pad=0):
-    """Max pool with explicit *zero* padding (Keras ZeroPaddingND + VALID pool)."""
+    """Max pool with explicit *zero* padding (Keras ZeroPaddingND + VALID pool).
+
+    The 3D pool's backward is :class:`_MaxPool3d`'s, which repeats itself:
+    torch's CUDA backward of ``max_pool3d`` adds with atomics. The 2D one's
+    gathers already."""
     nd = x.dim() - 2
     pads = norm_tuple(pad, nd)
     if any(pads):
         x = F.pad(x, _pad_arg([(p, p) for p in pads]))
-    pool = F.max_pool2d if nd == 2 else F.max_pool3d
-    return channels_last(pool(x, norm_tuple(window, nd), norm_tuple(stride, nd)))
+    window, stride = norm_tuple(window, nd), norm_tuple(stride, nd)
+    if nd == 3:
+        return channels_last(_MaxPool3d.apply(x, window, stride))
+    return channels_last(F.max_pool2d(x, window, stride))
+
+
+class _MaxPool3d(torch.autograd.Function):
+    """VALID ``max_pool3d`` whose backward sums in a fixed order. The
+    forward is torch's, ties and all: each window's gradient goes to its
+    first maximum in scan order, which the forward's indices name. The
+    backward takes each window's offset of that maximum and, offset by
+    offset in a fixed order, adds the gradients of the windows whose maximum
+    sits there into one strided view of the input gradient, where no two
+    windows meet; each input cell so sums its windows' gradients in float32
+    (float64 for float64) in the same order on every run, rounded once to
+    the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, window, stride):
+        y, idx = F.max_pool3d(x, window, stride, return_indices=True)
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype, ctx.window, ctx.stride = x.shape, x.dtype, window, stride
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        (kd, kh, kw), (sd, sh, sw) = ctx.window, ctx.stride
+        d, h, w = ctx.shape[2:]
+        od, oh, ow = g.shape[2:]
+        at = lambda n, s, axis: (torch.arange(n, device=g.device) * s).view(
+            [n if a == axis else 1 for a in range(3)])
+        # the window-local offset of each window's first maximum
+        pos = (idx // (h * w) - at(od, sd, 0)) * (kh * kw)
+        pos += ((idx // w) % h - at(oh, sh, 1)) * kw
+        pos += idx % w - at(ow, sw, 2)
+        g = g.to(torch.promote_types(g.dtype, torch.float32))
+        dx = torch.empty(ctx.shape, dtype=g.dtype, device=g.device,
+                         memory_format=torch.channels_last_3d).zero_()
+        zero = g.new_zeros(())
+        for p in range(kd * kh * kw):
+            a, b, c = p // (kh * kw), (p // kw) % kh, p % kw
+            dx[:, :, a:a + sd * (od - 1) + 1:sd, b:b + sh * (oh - 1) + 1:sh,
+               c:c + sw * (ow - 1) + 1:sw] += torch.where(pos == p, g, zero)
+        return dx.to(ctx.dtype), None, None
 
 
 def avg_pool(x, window, stride):
-    """VALID average pool, summed in float32 (densenet.py:164)."""
+    """VALID average pool, summed in float32 (densenet.py:164). The
+    windows tile the input (window == stride, as every caller has them), so
+    the backward is each window's gradient over its size, copied to its
+    cells (:class:`_AvgPool`), which repeats itself: torch's CUDA backward
+    of ``avg_pool3d`` adds with atomics."""
     nd = x.dim() - 2
-    pool = F.avg_pool2d if nd == 2 else F.avg_pool3d
-    y = pool(x.float(), norm_tuple(window, nd), norm_tuple(stride, nd))
-    return channels_last(y.to(x.dtype))
+    window, stride = norm_tuple(window, nd), norm_tuple(stride, nd)
+    if window != stride:
+        raise ValueError(f"avg_pool takes tiling windows, got window {window}, stride {stride}")
+    return channels_last(_AvgPool.apply(x, window))
+
+
+class _AvgPool(torch.autograd.Function):
+    """torch's VALID average pool over tiling windows, computed in float32
+    (float64 for float64) and rounded to x's dtype; the backward divides the
+    output gradient by the window's size in the same precision, as torch's
+    does, and spreads it over each window (zero on the cells no window
+    covers)."""
+
+    @staticmethod
+    def forward(ctx, x, window):
+        pool = F.avg_pool2d if len(window) == 2 else F.avg_pool3d
+        ctx.shape, ctx.dtype, ctx.window = x.shape, x.dtype, window
+        return pool(x.to(torch.promote_types(x.dtype, torch.float32)), window, window).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(torch.promote_types(g.dtype, torch.float32))
+        dx = upsample_nearest(g / float(np.prod(ctx.window)), ctx.window)
+        tail = [s - o for s, o in zip(ctx.shape[2:], dx.shape[2:])]
+        if any(tail):
+            dx = channels_last(F.pad(dx, _pad_arg([(0, t) for t in tail])))
+        return dx.to(ctx.dtype), None
 
 
 def upsample_nearest(x, factors):
@@ -443,37 +559,57 @@ def upsample_nearest(x, factors):
     return y.movedim(-1, 1)
 
 
-def dropout(x, rate: float, generator: torch.Generator | None = None, *, shard=None):
+def dropout(x, rate: float, seed: torch.Tensor | int | None = None, *, shard=None):
     """Inverted dropout (Keras core.py Dropout): each element is kept with
     probability 1 - rate and scaled by 1 / (1 - rate). Active only in
-    training, i.e. given a generator (on x's device); else the identity.
+    training, i.e. given a seed (a 0-d int64 tensor on x's device, as
+    :attr:`Ctx.seed` gives it, or an int); else the identity.
+
+    Element i of x's memory (the batch axis outermost) is kept when the top
+    24 bits of ``hash32(seed mod 2^32 ^ i)`` fall below ``(1 - rate) *
+    2^24``: the mask is computed on the device from the seed alone, the
+    same in eager steps and in a captured graph, remat on or off.
 
     ``shard`` (rank, ranks): x is rank's block of rows of a batch split over
-    ``ranks`` processes. The mask is then drawn for the whole batch, in the
-    memory layout x has, and the rank keeps its rows: the mask one process
-    would draw from the same generator, at ``ranks`` times the draws."""
-    if generator is None or rate <= 0.0:
+    ``ranks`` processes, and i counts from the rank's first element in the
+    whole batch: the rank's rows of the mask one process would draw, and
+    only those are computed."""
+    if seed is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    if shard is None:
-        mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
-    else:
+    n = x.numel()
+    if not _dense(x):
+        raise ValueError("dropout needs x dense in memory")
+    offset = 0
+    if shard is not None:
         rank, ranks = shard
-        n = x.shape[0]
-        if x.stride(0) != x[0].numel():
+        if x.dim() and x.shape[0] > 1 and x.stride(0) * x.shape[0] != n:
             raise ValueError("dropout over a split batch needs the batch axis outermost in memory")
-        whole = torch.empty_strided(
-            (n * ranks, *x.shape[1:]), x.stride(), dtype=x.dtype, device=x.device
-        ).bernoulli_(keep, generator=generator)
-        mask = whole[rank * n : (rank + 1) * n]
+        offset = rank * n
+    if offset + n > 2**32:
+        raise ValueError("dropout indexes at most 2^32 elements")
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=x.device) & _M32
+    h = hash32(torch.arange(offset, offset + n, dtype=torch.int64, device=x.device).bitwise_xor_(seed))
+    kept = (h >> (32 - _KEEP_BITS)) < round(keep * 2**_KEEP_BITS)
+    mask = kept.to(x.dtype).as_strided(x.shape, x.stride())
     return x / keep * mask
 
 
+def _dense(x) -> bool:
+    """Whether x's elements fill its memory, in some order of its axes."""
+    expect = 1
+    for size, stride in sorted(zip(x.shape, x.stride()), key=lambda t: t[1]):
+        if size != 1 and stride != expect:
+            return False
+        expect *= size
+    return True
+
+
 def maybe_dropout(ctx: Ctx | None, x, rate: float):
-    """:func:`dropout` with the training context's generator; the identity
-    at inference or at rate 0 (no generator is made for it)."""
+    """:func:`dropout` with the training context's seed; the identity at
+    inference or at rate 0 (no seed is hashed for it)."""
     if ctx is None or rate <= 0.0:
         return x
     if ctx.shard is None:
-        return dropout(x, rate, ctx.generator)
-    return dropout(x, rate, ctx.generator, shard=ctx.shard)
+        return dropout(x, rate, ctx.seed)
+    return dropout(x, rate, ctx.seed, shard=ctx.shard)

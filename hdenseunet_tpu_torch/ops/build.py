@@ -136,6 +136,13 @@ def _scratch(index: int, stream: int) -> int:
     return found[1]
 
 
+def reserve_scratch(stream: torch.cuda.Stream) -> None:
+    """Make ``stream``'s scratch buffer now, before a CUDA graph is
+    captured on ``stream``: made inside the capture, it would come from the
+    graph's pool."""
+    _scratch(stream.device.index, stream.cuda_stream)
+
+
 def run(entry, what: str, t: torch.Tensor, *args, scratch: bool = False) -> None:
     """``entry(*args[, scratch], stream)`` on CUDA tensor t's device and its
     current stream; raise if the launch returns an error. With ``scratch``

@@ -112,9 +112,13 @@ def apply(payload: dict, state):
             momentum[t] = buf
     as_numpy = lambda tree: {n: {l: a.numpy() for l, a in d.items()} for n, d in tree.items()}
     P.from_numpy(state.model, as_numpy(payload["params"]), as_numpy(payload["bn_state"]))
-    state.optimizer.state.clear()
-    for t, buf in momentum.items():
-        state.optimizer.state[t] = {"momentum_buffer": buf.to(t.device)}
+    with torch.no_grad():  # in place: a captured step holds these buffers
+        for t, slot in state.optimizer.state.items():
+            buf = slot["momentum_buffer"]
+            if t in momentum:
+                buf.copy_(momentum[t])
+            else:  # a leaf no step has reached yet
+                buf.zero_()
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     return state

@@ -3,9 +3,13 @@ hdenseunet_tpu/train/optimizer.py).
 
 SGD with Nesterov momentum: ``torch.optim.SGD(lr, momentum, nesterov=True)``
 with no dampening and no weight decay equals ``optax.sgd(nesterov=True)``.
-Both start the momentum buffer at the first gradient and step by
-``-lr * (g + m * buf)``, which is the reference's Keras SGD
-(Keras-2.0.8/keras/optimizers.py:130-194) up to the v = -lr*u substitution.
+Both step by ``-lr * (g + m * buf)`` with ``buf = m * buf + g``, which is
+the reference's Keras SGD (Keras-2.0.8/keras/optimizers.py:130-194) up to
+the v = -lr*u substitution. Every momentum buffer is made as zeros with the
+optimizer, as optax's trace is: ``0.9 * 0 + g == g``, so the first step is
+bit-equal to torch's clone of the first gradient, and the buffers are
+written in place from then on, never rebound, as a captured CUDA graph of
+the step needs (``train/trainer.py``).
 
 Staged freezing: a frozen leaf gets ``requires_grad=False`` and stays out of
 the optimizer, the counterpart of optax's ``set_to_zero`` (no update, no
@@ -49,6 +53,9 @@ def make_optimizer(
     opt = torch.optim.SGD(
         trainable, lr=lr, momentum=momentum, dampening=0.0, weight_decay=0.0, nesterov=nesterov
     )
+    if momentum:
+        for t in trainable:
+            opt.state[t]["momentum_buffer"] = torch.zeros_like(t, memory_format=torch.preserve_format)
     return opt, labels
 
 

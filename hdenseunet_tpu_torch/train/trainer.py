@@ -15,6 +15,14 @@ where it drains the losses, as the JAX loop does. The model, the optimizer
 and the moving statistics are updated in place. ``train`` also takes the
 cross-stage warm start, checkpoints (``train/checkpoint.py``) and resume.
 
+A step repeats itself: the same weights, batch and seed give the same bits
+(cuDNN restricted to its deterministic algorithms, :func:`repeatable`; the
+pools' backwards and the dropout masks of ``models/layers.py``).
+``steps_per_dispatch`` K > 1 (:func:`make_multi_step`, the counterpart of
+JAX's ``lax.scan`` over K steps) captures one step in a CUDA graph and
+replays it K times a group, one ``cudaGraphLaunch`` a step instead of
+~11 k kernel launches; the graphed steps equal eager ones bit for bit.
+
 Data parallelism (``mesh``, ``core/mesh.py``): one process per card, each
 feeding its rows of the global batch. Live BatchNorm statistics and the
 loss are the global batch's (``models/layers.py``, ``ops/wce.py``), so
@@ -30,12 +38,14 @@ of ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import Config
 from ..core.initializers import init_model
@@ -44,7 +54,8 @@ from ..core.mesh import (
 )
 from ..models import denseunet2d, hybrid
 from ..models import layers as L
-from ..parallel.multihost import put_batch
+from ..ops import build
+from ..parallel.multihost import PinnedFeed, put_batch
 from ..utils.guards import NaNGuard
 from ..weights.convert import match_to_model
 from . import checkpoint as ckpt_lib
@@ -114,6 +125,51 @@ def forward_loss(
     )
 
 
+@contextlib.contextmanager
+def repeatable():
+    """cuDNN restricted to its deterministic algorithms while open: with
+    the pools' and the dropout's forms in ``models/layers.py``, a step's
+    backward then sums in the same order on every run."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def draw_seed(state: TrainState) -> int:
+    """The next step's dropout seed, one draw of the host generator, which a
+    checkpoint keeps."""
+    return int(torch.randint(0, 2**62, (1,), generator=state.generator))
+
+
+def device_step(state: TrainState, batch: dict, seed: torch.Tensor, cfg: Config, mesh=None):
+    """Forward, loss, backward, the gradient sum over ranks, the SGD update
+    and the BN-state merge on device tensors (``seed`` a 0-d int64 tensor),
+    with no host sync and no change to host state: what a captured graph
+    replays. Returns the loss, a device scalar."""
+    ctx = L.Ctx(
+        seed, device=state.device, remat=cfg.train.remat, remat_policy=cfg.train.remat_policy,
+        mesh=mesh,
+    )
+    state.optimizer.zero_grad(set_to_none=True)
+    with repeatable():
+        loss = forward_loss(
+            state.model, batch, ctx, arch=state.arch, cfg=cfg, weights=state.loss_weights, mesh=mesh
+        )
+        loss.backward()
+    group = axis_group(mesh)
+    if group is not None:  # one bucket: every rank's share of the gradient, summed
+        all_reduce_([p.grad for p in state.model.parameters() if p.grad is not None], group)
+    state.optimizer.step()
+    with torch.no_grad():  # BN-state merge (module.py:237-242), once per step
+        for bn, (mean, var) in ctx.new_stats.items():
+            bn.moving_mean.copy_(mean)
+            bn.moving_variance.copy_(var)
+    return loss.detach()
+
+
 def train_step(state: TrainState, batch: dict, cfg: Config, mesh=None) -> torch.Tensor:
     """One optimizer step on a host (numpy) or device batch; returns the
     loss as a device scalar without waiting for it. Gradients stay in the
@@ -123,26 +179,128 @@ def train_step(state: TrainState, batch: dict, cfg: Config, mesh=None) -> torch.
     the same on every rank."""
     dev = state.device
     batch = put_batch(batch, dev) if isinstance(batch["image"], np.ndarray) else batch
-    seed = int(torch.randint(0, 2**62, (1,), generator=state.generator))
-    ctx = L.Ctx(
-        seed, device=dev, remat=cfg.train.remat, remat_policy=cfg.train.remat_policy, mesh=mesh
-    )
-    state.optimizer.zero_grad(set_to_none=True)
-    loss = forward_loss(
-        state.model, batch, ctx, arch=state.arch, cfg=cfg, weights=state.loss_weights, mesh=mesh
-    )
-    loss.backward()
-    group = axis_group(mesh)
-    if group is not None:  # one bucket: every rank's share of the gradient, summed
-        all_reduce_([p.grad for p in state.model.parameters() if p.grad is not None], group)
-    state.optimizer.step()
-    with torch.no_grad():  # BN-state merge (module.py:237-242), once per step
-        for bn, (mean, var) in ctx.new_stats.items():
-            bn.moving_mean.copy_(mean)
-            bn.moving_variance.copy_(var)
+    seed = put_batch({"seed": np.array([draw_seed(state)])}, dev)["seed"][0]
+    loss = device_step(state, batch, seed, cfg, mesh)
     L.unfreeze_bn_scale(state.model)
     state.step += 1
-    return loss.detach()
+    return loss
+
+
+class MultiStep:
+    """K optimizer steps per call (trainer.py:157-191, ``lax.scan`` over a
+    stacked batch), built by :func:`make_multi_step`.
+
+    A call takes K host batches, stacked (``{key: (K, B, ...)}``, as
+    :func:`stack_batches` makes them) or as a list of K batch dicts, or a
+    list of K batches already on the device (the CLI's prefetch), and draws
+    K seeds from the host generator; host arrays and the seeds reach the
+    card in one pinned copy per array (``PinnedFeed``, which writes a
+    list's batches straight into its pinned slots). On the card the first call runs its K steps eagerly:
+    that is the warm-up (cuDNN's first calls, the kernels' build) and its
+    steps count. The second captures one step
+    (:func:`device_step`) on a side stream, reading fixed input tensors, and
+    every call from then on replays it K times: per step, a device copy of
+    the group's slot into the fixed inputs, one graph launch, and a copy of
+    the loss into a (K,) buffer, which is cloned before the next call
+    writes it. Nothing the graph reads is rebound after the capture, only
+    written in place: parameters and their ``.grad``, momentum buffers, BN
+    moving statistics and the kernels' scratch. A capture that fails
+    raises; there is no fallback to eager steps. On the CPU every call runs
+    its steps eagerly, and there is no graph.
+
+    The kernel wrappers' launch counters see a captured launch once, at the
+    capture: ``replays`` counts the steps replayed, ``capture_seconds`` the
+    capture's host time.
+    """
+
+    def __init__(self, state: TrainState, cfg: Config, mesh, k: int):
+        self.state, self.cfg, self.mesh, self.k = state, cfg, mesh, k
+        self.feed, self.seeds = PinnedFeed(state.device), PinnedFeed(state.device)
+        self.graph = None
+        self.calls = self.replays = 0
+        self.capture_seconds = None
+
+    def __call__(self, stacked) -> torch.Tensor:
+        """K steps on ``stacked`` batches (a dict of (K, B, ...) arrays or
+        a list of K batches); returns their losses as a (K,) device tensor
+        without waiting for them."""
+        st, k = self.state, self.k
+        seeds = np.array([draw_seed(st) for _ in range(k)], dtype=np.int64)
+        if st.device.type != "cuda" or self.calls == 0:
+            group = self._put(stacked, seeds)
+            losses = torch.stack([
+                device_step(st, {"image": group["image"][i], "label": group["label"][i]},
+                            group["seed"][i], self.cfg, self.mesh)
+                for i in range(k)
+            ])
+        else:
+            if self.graph is None:
+                self._capture(stacked)
+            group = self._put(stacked, seeds)
+            for i in range(k):
+                for key, t in self._inputs.items():
+                    t.copy_(group[key][i])
+                self.graph.replay()
+                self._losses[i].copy_(self._loss)
+            losses = self._losses.clone()
+            self.replays += k
+        self.calls += 1
+        L.unfreeze_bn_scale(st.model)
+        st.step += k
+        return losses
+
+    def _put(self, stacked, seeds) -> dict:
+        """The group's image, label and seed arrays on the model's device."""
+        pick = lambda b: {"image": b["image"], "label": b["label"]}
+        if not isinstance(stacked, list):
+            batch = self.feed.put(pick(stacked))
+        elif isinstance(stacked[0]["image"], torch.Tensor):  # the device prefetch's batches
+            batch = {k: torch.stack([b[k] for b in stacked]) for k in ("image", "label")}
+        else:
+            batch = self.feed.put([pick(b) for b in stacked])
+        return {**batch, **self.seeds.put({"seed": seeds})}
+
+    def _capture(self, stacked) -> None:
+        st = self.state
+        t0 = time.perf_counter()
+        stream = torch.cuda.Stream(st.device)
+        build.reserve_scratch(stream)
+        one = stacked[0] if isinstance(stacked, list) else {k: v[0] for k, v in stacked.items()}
+        self._inputs = {
+            "image": torch.empty(tuple(one["image"].shape), device=st.device,
+                                 dtype=torch.as_tensor(one["image"][:0]).dtype),
+            "label": torch.empty(tuple(one["label"].shape), device=st.device, dtype=torch.int32),
+            "seed": torch.empty((), device=st.device, dtype=torch.int64),
+        }
+        self._losses = torch.empty(self.k, dtype=torch.float32, device=st.device)
+        graph = torch.cuda.CUDAGraph()
+        st.optimizer.zero_grad(set_to_none=True)  # the graph's backward makes .grad
+        with torch.cuda.graph(graph, stream=stream):
+            batch = {"image": self._inputs["image"], "label": self._inputs["label"]}
+            self._loss = device_step(st, batch, self._inputs["seed"], self.cfg, self.mesh)
+        self.graph = graph
+        self.capture_seconds = time.perf_counter() - t0
+
+
+def make_multi_step(state: TrainState, cfg: Config, mesh=None, k: int = 8) -> MultiStep:
+    """K train steps per dispatch (trainer.py:157-191): a :class:`MultiStep`
+    over ``state``, which it updates in place; numerically identical to K
+    :func:`train_step` calls. Under a gloo process group it raises
+    NotImplementedError: gloo's collectives cannot be captured in a CUDA
+    graph. NCCL's are captured as they are."""
+    group = axis_group(mesh)
+    if group is not None and dist.get_backend(group) == "gloo":
+        raise NotImplementedError(
+            "steps_per_dispatch > 1 captures the step in a CUDA graph, and gloo's collectives "
+            "cannot be captured: use NCCL, or steps_per_dispatch 1"
+        )
+    return MultiStep(state, cfg, mesh, k)
+
+
+def stack_batches(batches: list) -> dict:
+    """[{k: (B, ...)}] * K -> {k: (K, B, ...)} for :func:`make_multi_step`."""
+    keys = batches[0].keys()
+    return {k: np.stack([b[k] for b in batches]) for k in keys}
 
 
 @torch.no_grad()
@@ -238,9 +396,14 @@ def train(
     of ``cfg.train.batch``; ``device`` is this rank's card. The state starts
     as rank 0's (a broadcast after the warm start or the restore), rank 0
     writes the checkpoints and the history, and the losses are global.
+
+    ``cfg.train.steps_per_dispatch`` K > 1 groups the batches by K, as the
+    JAX loop does (trainer.py:314-405): each full group is one
+    :class:`MultiStep` call (on the card, from the second group on, K
+    replays of one captured step); a trailing partial group, and a group
+    that would overshoot ``max_steps``, run as single steps; logging,
+    epochs and checkpoints fire when a step count crosses their cadence.
     """
-    if cfg.train.steps_per_dispatch > 1:
-        raise NotImplementedError("steps_per_dispatch > 1 is a TPU dispatch lever, not ported")
     mesh = make_mesh(device) if mesh is None else mesh
     check_batch_divisible(cfg.train.batch, mesh)
     arch = cfg.train.arch
@@ -260,6 +423,8 @@ def train(
         if resume and ckpt.restore_latest(state) is not None:
             log_fn(f"resumed from step {state.step}")
     replicate(mesh, state.model)
+    k = max(1, cfg.train.steps_per_dispatch)
+    multi = make_multi_step(state, cfg, mesh, k) if k > 1 else None
     slices = cfg.model.input_cols if arch != "2d" else 1
     metrics = MetricsLogger(
         cfg.train.save_path, slices_per_sample=slices, world_size=axis_size(mesh),
@@ -279,14 +444,35 @@ def train(
             metrics.log_step(v, cfg.train.batch)
         pending.clear()
 
+    def batch_groups():
+        """Lists of up to k batches; a trailing partial group is kept."""
+        group: list = []
+        for batch in batch_iterator:
+            group.append(batch)
+            if len(group) == k:
+                yield group
+                group = []
+        if group:
+            yield group
+
     step = 0
-    for batch in batch_iterator:
+    for group in batch_groups():
         if step >= total:
             break
-        pending.append(train_step(state, batch, cfg, mesh))
-        prev, step = step, step + 1
+        remaining = total - step
+        if multi is not None and len(group) == k and remaining >= k:
+            pending.extend(multi(group).unbind())
+            n_steps = k
+        else:
+            # a partial tail group, or a full group that would overshoot
+            # max_steps: clamped single steps, no batch silently dropped
+            for batch in group[:remaining]:
+                pending.append(train_step(state, batch, cfg, mesh))
+            n_steps = min(len(group), remaining)
+        prev, step = step, step + n_steps
 
         def crossed(n: int) -> bool:
+            # a multiple of n lies in (prev, step]: robust to k-step jumps
             return step // n > prev // n
 
         if crossed(cfg.train.log_every_steps) or step >= total or crossed(steps_per_epoch):
@@ -303,4 +489,10 @@ def train(
     if ckpt is not None:
         drain(step)
         ckpt.save(state.step, state, metric=metrics.last_loss())
+    if multi is not None:
+        log_fn(
+            f"steps_per_dispatch {k}: {multi.calls * k} steps in groups, {multi.replays} of them "
+            "replayed from one captured CUDA graph"
+            + (f" (captured in {multi.capture_seconds:.2f} s)" if multi.graph is not None else "")
+        )
     return state

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's train step goes, on one CUDA card.
 
-    python3 profile_train.py [--steps 3] [--pairs 2] [--trace PATH]
+    python3 profile_train.py [--steps 3] [--pairs 2] [--trace PATH] [--steps-per-dispatch 8]
 
 Runs chip_smoke.py's training configuration (full preset, bfloat16, global
 batch 8, remat, seeded random weights, synthetic batches) for the end2end
@@ -25,7 +25,20 @@ name and power limit:
    PyTorch versions, in turns (plain, kernels, kernels, plain per pair). The
    plain versions are switched on here only, by pointing the wrappers'
    module names at them; the package itself has no such switch. The launch
-   counters show which ran.
+   counters show which ran;
+5. per stage, the step as it runs (cuDNN restricted to deterministic
+   algorithms, ``trainer.repeatable``) against the step with cuDNN free to
+   choose, in turns (free, deterministic, deterministic, free per pair);
+   the free form is switched on here only, by pointing
+   ``trainer.repeatable`` at a null context;
+6. with ``--steps-per-dispatch K`` (K > 1), per stage, the graphed step:
+   ``make_multi_step`` over one stacked group of K synthetic batches, a
+   first call (eager: the warm-up), a second (the capture, then K
+   replays), then ``--steps`` calls timed: wall and host queueing per step;
+   then one call under torch.profiler (device events): device busy ms a
+   step and the idle share of its wall, beside the eager step's of item 2;
+   then a second graph, captured with cuDNN free to choose, against the
+   first in turns (free, deterministic, deterministic, free per pair).
 
 It raises without a card and catches nothing.
 """
@@ -39,7 +52,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from chip_smoke import SEED, card_line
+from chip_smoke import SEED, card_line, device_busy_ms
 
 OWN = ("affine_relu", "wce_")  # name fragments of the port's CUDA kernels
 # the profiler's names of the port's autograd Functions and their backwards
@@ -60,8 +73,9 @@ def make_state(arch: str):
         mode="2d" if arch == "2d" else "hybrid", batch=8, input_size=cfg.model.input_size,
         input_cols=cfg.model.input_cols, seed=SEED,
     )
-    batch = put_batch(next(gen), "cuda")  # one batch, already on the card
-    return state, cfg, batch
+    host = next(gen)
+    batch = put_batch(host, "cuda")  # one batch, already on the card
+    return state, cfg, batch, host
 
 
 def step_times(state, cfg, batch, steps: int) -> tuple[list, list]:
@@ -164,6 +178,63 @@ def wrapper_host_us(card: str, calls: int = 200) -> None:
           + ", ".join(f"{k} {v:.1f} us" for k, v in us.items()) + f" [{card}]")
 
 
+def graph_times(state, cfg, host: dict, arch: str, k: int, calls: int, pairs: int, card: str) -> None:
+    """Item 6: the graphed step of ``state``'s stage, K steps a call; then
+    a second graph captured with cuDNN free to choose, and the two in turns
+    (free, deterministic, deterministic, free per pair), one call a turn."""
+    from hdenseunet_tpu_torch.train.trainer import make_multi_step, stack_batches
+
+    stacked = stack_batches([host] * k)
+    multi = make_multi_step(state, cfg, None, k)
+    for _ in range(2):  # the eager warm-up group, then the capture and K replays
+        multi(stacked)
+    torch.cuda.synchronize()
+
+    def timed(fn) -> tuple[float, float]:
+        t0 = time.perf_counter()
+        fn(stacked)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / k * 1e3, (t1 - t0) / k * 1e3
+
+    walls, queued = zip(*(timed(multi) for _ in range(calls)))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        multi(stacked)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, events = device_busy_ms(prof)
+    print(
+        f"{arch} graphed step (steps_per_dispatch {k}): wall ms/step {[round(w, 2) for w in walls]}, "
+        f"host queueing ms/step {[round(q, 2) for q in queued]}, capture {multi.capture_seconds:.2f} s; "
+        f"profiled group: wall {wall / k:.2f} ms/step, device busy {busy / k:.2f} ms/step, idle "
+        f"{100 * (1 - busy / wall):.1f} %, {events // k} device events a step [{card}]"
+    )
+    free = make_multi_step(state, cfg, None, k)
+    with free_cudnn():
+        for _ in range(2):
+            free(stacked)
+    turns = {"free": [], "deterministic": []}
+    for _ in range(pairs):
+        for variant in ("free", "deterministic", "deterministic", "free"):
+            turns[variant].append(timed(free if variant == "free" else multi)[0])
+    for variant, ms in turns.items():
+        print(f"{arch} graphed step, cuDNN {variant}: ms/step per turn {[round(m, 2) for m in ms]} [{card}]")
+
+
+@contextlib.contextmanager
+def free_cudnn():
+    """Let cuDNN choose its algorithms freely in the train step."""
+    from hdenseunet_tpu_torch.train import trainer as T
+
+    saved = T.repeatable
+    T.repeatable = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        T.repeatable = saved
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route K1, K1's backward and K2 through their plain PyTorch versions."""
@@ -183,6 +254,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=3, help="timed steps per stage and per turn")
     ap.add_argument("--pairs", type=int, default=2, help="plain/kernels/kernels/plain turns")
     ap.add_argument("--trace", default=None, help="write each profiled step's chrome trace here")
+    ap.add_argument("--steps-per-dispatch", type=int, default=1,
+                    help="K > 1: also time and profile the graphed step, K steps a call")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: torch.cuda.is_available() is false; this script needs a card")
@@ -192,7 +265,7 @@ def main() -> None:
 
     wrapper_host_us(card)
     for arch in ("end2end", "2d"):
-        state, cfg, batch = make_state(arch)
+        state, cfg, batch, host = make_state(arch)
         step_times(state, cfg, batch, 2)  # warm-up: cuDNN's first calls
         walls, queued = step_times(state, cfg, batch, args.steps)
         print(
@@ -200,7 +273,19 @@ def main() -> None:
             f"{[round(q, 1) for q in queued]}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]"
         )
         profile_step(state, cfg, batch, arch, card, args.trace)
+        turns = {"free": [], "deterministic": []}
+        for _ in range(args.pairs):
+            for variant in ("free", "deterministic", "deterministic", "free"):
+                with free_cudnn() if variant == "free" else contextlib.nullcontext():
+                    step_times(state, cfg, batch, 1)  # cuDNN's first calls in this mode
+                    walls, _ = step_times(state, cfg, batch, args.steps)
+                turns[variant].append(float(np.median(walls)))
+        for variant, ms in turns.items():
+            print(f"{arch} step, cuDNN {variant}: median ms per turn {[round(m, 1) for m in ms]} [{card}]")
+        if args.steps_per_dispatch > 1:
+            graph_times(state, cfg, host, arch, args.steps_per_dispatch, args.steps, args.pairs, card)
         if arch != "end2end":
+            del state, batch
             continue
         runs = {"plain": [], "kernels": []}
         for _ in range(args.pairs):

@@ -60,7 +60,7 @@ def port_step(arch, params, state, batch, mesh, *, dropout: bool) -> tuple[T.Tra
     under ``mesh``); dropout patched to the identity unless ``dropout``."""
     kept = L.dropout
     if not dropout:
-        L.dropout = lambda x, rate, generator=None, **kw: x
+        L.dropout = lambda x, rate, seed=None, **kw: x
     try:
         st = T.create_train_state(port_config(arch), arch, device="cpu")
         P.from_numpy(st.model, params, state)

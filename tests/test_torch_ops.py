@@ -633,3 +633,47 @@ def test_cuda_compose_finish_edges(cuda, shape, offset):
         for _ in range(2):
             got = cc.compose_finish(*args)
             assert all(torch.equal(g, w) for g, w in zip(got, want)), (name, got[2], want[2])
+
+
+@pytest.mark.parametrize("arch", ["2d", "end2end"])
+def test_cuda_graphed_steps_equal_eager(cuda, tmp_path, arch):
+    """train() at steps_per_dispatch 2, tiny preset, 6 steps on the card
+    (a group eager, then two groups replayed from one captured step, dropout
+    live) against 6 eager steps, 6 eager steps again, and 4 graphed steps
+    resumed for 2 more: losses, parameters, moving statistics and momentum
+    buffers bit for bit; K1 and K2 launch inside the capture."""
+    from hdenseunet_tpu_torch.core.config import Config
+    from hdenseunet_tpu_torch.data.sampler import synthetic_batches
+    from hdenseunet_tpu_torch.train import trainer as T
+
+    gen = synthetic_batches(mode="2d" if arch == "2d" else "hybrid", batch=2, input_size=32,
+                            input_cols=8, seed=0)
+    batches = [next(gen) for _ in range(6)]
+    runs = []
+    for k in (1, 2, 1):
+        cfg = Config()
+        cfg.model.preset, cfg.model.input_size, cfg.model.compute_dtype = "tiny", 32, "bfloat16"
+        cfg.train.arch, cfg.train.batch, cfg.train.steps_per_dispatch = arch, 2, k
+        cfg.train.save_path, cfg.train.log_every_steps = str(tmp_path / str(len(runs))), 1
+        before = (K.affine_relu.launches, W.wce_forward.launches)
+        state = T.train(cfg, iter(batches), max_steps=6, device="cuda", log_fn=lambda *a: None)
+        launched = (K.affine_relu.launches - before[0], W.wce_forward.launches - before[1])
+        losses = (tmp_path / str(len(runs)) / "history" / "lossbatch.txt").read_text()
+        tensors = [*state.model.state_dict().values(),
+                   *(s["momentum_buffer"] for s in state.optimizer.state.values())]
+        runs.append((losses, [t.detach().clone() for t in tensors], launched))
+    assert runs[1][0] == runs[0][0] == runs[2][0]
+    for a, b, c in zip(runs[0][1], runs[1][1], runs[2][1]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    # the graphed run's wrappers launched 2 eager steps and 1 captured one
+    assert runs[1][2][1] == 3 and runs[0][2][1] == 6
+    assert (runs[1][2][0] > 0) == (arch == "end2end")
+    # 4 graphed steps, a save, a resume and 2 more equal the 6 eager steps
+    cfg.train.steps_per_dispatch, cfg.train.checkpoint_every_steps = 2, 4
+    T.train(cfg, iter(batches[:4]), max_steps=4, device="cuda", checkpoint_dir=str(tmp_path / "ck"),
+            log_fn=lambda *a: None)
+    state = T.train(cfg, iter(batches[4:]), max_steps=2, device="cuda", resume=True,
+                    checkpoint_dir=str(tmp_path / "ck"), log_fn=lambda *a: None)
+    resumed = [*state.model.state_dict().values(),
+               *(s["momentum_buffer"] for s in state.optimizer.state.values())]
+    assert state.step == 6 and all(torch.equal(a, b) for a, b in zip(runs[0][1], resumed))

@@ -95,7 +95,7 @@ def port_state(arch, params, state, *, remat=True):
 
 
 def port_step(arch, params, state, batch, monkeypatch, *, remat=True):
-    monkeypatch.setattr(L, "dropout", lambda x, rate, generator=None: x)
+    monkeypatch.setattr(L, "dropout", lambda x, rate, seed=None: x)
     st, pcfg = port_state(arch, params, state, remat=remat)
     loss = T.train_step(st, batch, pcfg)
     return st, float(loss)
@@ -225,18 +225,19 @@ def test_train_bn_scale_relu_matches_jax_with_gradients(frozen):
 
 def test_dropout_keep_rate_scaling_and_eval_identity():
     x = torch.full((400, 500), 3.0)
-    gen = torch.Generator().manual_seed(0)
-    y = L.dropout(x, 0.3, gen)
+    seed = torch.tensor(0)
+    y = L.dropout(x, 0.3, seed)
     kept = y != 0
     # 200k Bernoulli(0.7) draws: the kept share within 5 standard deviations
     assert abs(float(kept.float().mean()) - 0.7) < 5 * (0.7 * 0.3 / x.numel()) ** 0.5
     assert torch.allclose(y[kept], torch.tensor(3.0 / 0.7))
-    assert L.dropout(x, 0.3) is x and L.dropout(x, 0.0, gen) is x  # inference / rate 0
+    assert L.dropout(x, 0.3) is x and L.dropout(x, 0.0, seed) is x  # inference / rate 0
     assert L.maybe_dropout(None, x, 0.3) is x
     bf = x.to(torch.bfloat16).movedim(-1, 0)
-    assert L.dropout(bf, 0.1, gen).stride() == bf.stride()  # keeps the memory format
-    a = L.dropout(x, 0.3, torch.Generator().manual_seed(7))
-    assert torch.equal(a, L.dropout(x, 0.3, torch.Generator().manual_seed(7)))
+    assert L.dropout(bf, 0.1, seed).stride() == bf.stride()  # keeps the memory format
+    a = L.dropout(x, 0.3, torch.tensor(7))
+    assert torch.equal(a, L.dropout(x, 0.3, torch.tensor(7)))
+    assert not torch.equal(a, y)  # another seed, another mask
 
 
 def test_dropout_masks_do_not_depend_on_remat(inits):
@@ -424,12 +425,19 @@ def test_nan_batch_raises(tmp_path):
      ("checkpoint_dir", "ck"), ("resume", True), ("init_weights", {})],
 )
 def test_unported_training_options_raise(tmp_path, field, value):
-    """The TPU levers raise. Checkpoints, resume, the warm start and
-    remat_policy='convs' have been ported since, and the loop now takes them
-    (test_torch_checkpoint.py, test_torch_cli.py and test_torch_remat.py
-    test what they do)."""
+    """The TPU levers raise. Checkpoints, resume, the warm start,
+    remat_policy='convs' and steps_per_dispatch have been ported since, and
+    the loop now takes them (test_torch_checkpoint.py, test_torch_cli.py,
+    test_torch_remat.py and test_torch_multistep.py test what they do)."""
     pcfg = _loop_cfg(tmp_path)
     kwargs = {}
+    if field == "steps_per_dispatch":  # a group of 2 and a single step after it
+        pcfg.train.steps_per_dispatch = value
+        batches = synthetic_batches(mode="hybrid", batch=BATCH, input_size=SIZE, input_cols=COLS, seed=1)
+        logged = []
+        assert T.train(pcfg, batches, max_steps=3, device="cpu", log_fn=logged.append).step == 3
+        assert logged[-1].startswith("steps_per_dispatch 2: 2 steps in groups")
+        return
     if field == "remat_policy":
         pcfg.train.remat_policy = value
         assert T.train(pcfg, iter(()), max_steps=1, device="cpu", log_fn=lambda *a: None).step == 0

@@ -68,7 +68,7 @@ def test_float32_summation_order_moves_hybrid_gradients(hybrid_init, monkeypatch
     gaps."""
     params, state = hybrid_init
     batch = make_batch("end2end", seed=1)
-    monkeypatch.setattr(L, "dropout", lambda x, rate, generator=None: x)
+    monkeypatch.setattr(L, "dropout", lambda x, rate, seed=None: x)
     steps = []
     for channels_last in (False, True):
         st, pcfg = port_state("end2end", params, state)
