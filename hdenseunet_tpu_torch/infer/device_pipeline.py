@@ -16,7 +16,9 @@ the 3D branch and head per window; an opt-in deviation at window edges).
 Wires: the 2-bit packed labelmask (``wire_bits=2``), the uint8 one
 (``wire_bits=8``), and with ``device_postprocess`` the final labelmap after
 the CC postprocess on the card (``infer/device_postprocess.py``), dense or
-bbox-cropped (``sparse_wire``).
+bbox-cropped (``sparse_wire``). Every path runs the 3D branch in the form
+the config asks for (:func:`forms`): ``layout3d`` and ``stem_s2d``, whose
+shipped default is the space-to-depth stem.
 
 :class:`TiledVolumeScorer` is the x/y/z-tiled scorer (reference
 predict_window_mulgpu): windows of (tile, tile, input_cols) over the whole
@@ -175,6 +177,15 @@ def summarize(score):
     return torch.stack([score[..., 1].sum(), score[..., 2].sum(), score[..., 2].max()])
 
 
+def forms(cfg) -> dict:
+    """The 3D branch's form that ``cfg`` (an InferConfig) asks the scorers
+    for, as the hybrid's keywords (device_pipeline.py:392-393): the layout
+    and the space-to-depth stem, each defaulting to the direct form."""
+    return dict(
+        layout3d=getattr(cfg, "layout3d", "hwdc"), stem_s2d=getattr(cfg, "stem_s2d", False)
+    )
+
+
 def crop_pack(final, x0: int, y0: int, z0: int, *, sx: int, sy: int, sz: int):
     """2-bit wire of the (sx, sy, sz) crop of the device labelmap at (x0, y0,
     z0); the caller keeps the crop inside the labelmap."""
@@ -224,6 +235,7 @@ class DeviceVolumeScorer:
         self.device = torch.device(device)
         self.dtype = getattr(torch, compute_dtype)
         self.model = replicate(mesh, L.prepare_serving(model, self.device, self.dtype))
+        self.forms = forms(cfg)
 
     def _bucketed(self, z: int) -> int:
         need = max(z, self.cfg.input_cols)
@@ -386,7 +398,7 @@ class DeviceVolumeScorer:
         elif p["dedup"]:
             run = self._dedup_batch(vol_d, wb)  # a block of a run is a run
         else:
-            run = lambda s_i: self.model(self._windows(vol_d, s_i), arch=self.arch)
+            run = lambda s_i: self.model(self._windows(vol_d, s_i), arch=self.arch, **self.forms)
         for s_i, w_i in zip(p["starts"].astype(np.int64), p["weights"]):
             s_i, w_i = s_i[rank * wb : (rank + 1) * wb], w_i[rank * wb : (rank + 1) * wb]
             if w_i.any():
@@ -415,7 +427,8 @@ class DeviceVolumeScorer:
             feat2d, logits2d = self.model.net2d(stacks.permute(2, 0, 1, 3).contiguous())
             res_w = logits2d[asm].permute(0, 2, 3, 1, 4)  # (wb, x, y, cols, C)
             fea_w = feat2d[asm].permute(0, 2, 3, 1, 4)  # (wb, x, y, cols, F)
-            return self.model.fuse(self._windows(vol_d, s_i), res_w, fea_w, arch=self.arch)
+            vol_w = self._windows(vol_d, s_i)
+            return self.model.fuse(vol_w, res_w, fea_w, arch=self.arch, **self.forms)
 
         return run
 
@@ -444,7 +457,8 @@ class DeviceVolumeScorer:
             win = torch.from_numpy(np.clip(s_i, 0, zp - cols)[:, None] + np.arange(cols)).to(self.device)
             fea_w = fea[win].permute(0, 2, 3, 1, 4)  # (wb, x, y, cols, F)
             res_w = res[win].permute(0, 2, 3, 1, 4)
-            return self.model.fuse(self._windows(vol_d, s_i), res_w, fea_w, arch=self.arch)
+            vol_w = self._windows(vol_d, s_i)
+            return self.model.fuse(vol_w, res_w, fea_w, arch=self.arch, **self.forms)
 
         return run
 
@@ -627,6 +641,7 @@ class TiledVolumeScorer:
         self.device = torch.device(device)
         self.dtype = getattr(torch, compute_dtype)
         self.model = L.prepare_serving(model, self.device, self.dtype)
+        self.forms = forms(cfg)
 
     def plan(self, vol_shape) -> dict:
         """The padded shape, the window size and the window origins, in the
@@ -657,7 +672,7 @@ class TiledVolumeScorer:
             chunk = org[i : i + wb]
             batch = chunk + [(0, 0, 0)] * (wb - len(chunk))
             wins = torch.stack([vol_d[a : a + wx, b : b + wy, c : c + wz] for a, b, c in batch])
-            logits = self.model(wins.unsqueeze(-1), arch=self.arch)
+            logits = self.model(wins.unsqueeze(-1), arch=self.arch, **self.forms)
             probs = torch.softmax(logits.float(), dim=-1)
             for j, (a, b, c) in enumerate(chunk):
                 score[a : a + wx, b : b + wy, c : c + wz].add_(probs[j])

@@ -42,7 +42,7 @@ def unstack_to_volume(y, batch, depth):
 
 class HFFHead(nn.ModuleDict):
     """add -> Conv3D(64) -> Dropout -> BN -> ReLU -> 1x1x1 Conv '2d3dclassifer'
-    (hybridnet.py:414-419), the 'hwdc' form."""
+    (hybridnet.py:414-419), in the 3D branch's form (hybrid.py:120-163)."""
 
     def __init__(self, width, *, num_classes=3, device=None):
         super().__init__()
@@ -52,13 +52,24 @@ class HFFHead(nn.ModuleDict):
             HEAD_WIDTH, num_classes, 1, ndim=3, name="2d3dclassifer", device=device
         )
 
-    def forward(self, feat3d, fea2d, ctx: L.Ctx | None = None, *, arch: str = "end2end"):
-        """feat3d, fea2d: (B, H, W, D, F) -> logits (B, H, W, D, num_classes)."""
-        fused = L.channels_last((feat3d + fea2d).movedim(-1, 1))  # HFF (hybridnet.py:414)
-        f = self["fianl_conv"](fused)
+    def forward(
+        self, feat3d, fea2d, ctx: L.Ctx | None = None, *, arch: str = "end2end",
+        layout: str = "hwdc", fold_z: bool = False,
+    ):
+        """feat3d, fea2d: (B, H, W, D, F) -> logits (B, H, W, D, num_classes).
+
+        ``layout='dhwc'`` runs the head d-major: ``feat3d`` is then already
+        (B, D, H, W, F) (the 3D branch with ``unfold_outputs=False``) and
+        ``fea2d`` stays canonical. ``fold_z`` runs it z-folded."""
+        ops = denseunet3d.ops_for(layout, fold_z)
+        if layout == "dhwc":  # HFF (hybridnet.py:414)
+            fused = L.channels_last((feat3d + fea2d.permute(0, 3, 1, 2, 4)).movedim(-1, 1))
+        else:
+            fused = ops.fold((feat3d + fea2d).movedim(-1, 1))
+        f = ops.conv(self["fianl_conv"], fused)
         f = L.maybe_dropout(ctx, f, 0.3 if arch == "end2end" else 0.1)
         f = torch.relu(self["final_bn"](f, ctx))
-        return self["2d3dclassifer"](f).movedim(1, -1)
+        return ops.unfold(ops.conv(self["2d3dclassifer"], f)).movedim(1, -1)
 
 
 class HDenseUNet(nn.Module):
@@ -80,12 +91,15 @@ class HDenseUNet(nn.Module):
 
     def forward(
         self, vol, ctx: L.Ctx | None = None, *, arch: str = "end2end", taps: dict | None = None,
+        layout3d: str = "hwdc", stem_s2d: bool = False, fold_z: bool = False,
     ):
         """vol: (B, H, W, D, 1); H, W divisible by 32; D by 4 ->
         logits (B, H, W, D, num_classes). ``ctx``: None for inference, a
         training :class:`layers.Ctx` otherwise (hybrid.py:68-118). ``taps``,
         when given a dict, records the fusion boundary: res2d, fea2d, feat3d
-        and 2d3dclassifer, each (B, H, W, D, C) (weights/parity.py)."""
+        and 2d3dclassifer, each (B, H, W, D, C) (weights/parity.py).
+        ``layout3d`` 'hwdc' | 'dhwc', ``stem_s2d`` and ``fold_z`` select the
+        form of the 3D branch and the head (models/denseunet3d.py)."""
         assert arch in ("end2end", "3dpart"), arch
         b, _, _, d = vol.shape[:4]
         feat2d, logits2d = self.net2d(
@@ -94,20 +108,30 @@ class HDenseUNet(nn.Module):
         res2d, fea2d = unstack_to_volume(logits2d, b, d), unstack_to_volume(feat2d, b, d)
         if taps is not None:
             taps.update(res2d=res2d, fea2d=fea2d)
-        return self.fuse(vol, res2d, fea2d, ctx, arch=arch, taps=taps)
+        return self.fuse(
+            vol, res2d, fea2d, ctx, arch=arch, taps=taps, layout3d=layout3d, stem_s2d=stem_s2d,
+            fold_z=fold_z,
+        )
 
     def fuse(
         self, vol, res2d, fea2d, ctx: L.Ctx | None = None, *, arch: str = "end2end",
-        taps: dict | None = None,
+        taps: dict | None = None, layout3d: str = "hwdc", stem_s2d: bool = False,
+        fold_z: bool = False,
     ):
         """The hybrid after its 2D branch: x250 fusion -> 3D DenseUNet -> HFF.
 
         vol (B,H,W,D,1), res2d (B,H,W,D,C) 2D logits, fea2d (B,H,W,D,F) 2D
-        features -> logits (B,H,W,D,C); ``taps`` gets feat3d and the logits."""
+        features -> logits (B,H,W,D,C); ``taps`` gets feat3d and the logits.
+        Under 'dhwc' the 3D branch hands its features to the head d-major."""
         input3d = torch.cat([vol, res2d * LOGIT_AMPLIFICATION], dim=-1)
-        feat3d, _ = self.net3d(input3d, ctx)
-        logits = self.head(feat3d, fea2d, ctx, arch=arch)
+        dhwc = layout3d == "dhwc"
+        feat3d, _ = self.net3d(
+            input3d, ctx, layout=layout3d, stem_s2d=stem_s2d, fold_z=fold_z, unfold_outputs=not dhwc
+        )
+        logits = self.head(feat3d, fea2d, ctx, arch=arch, layout=layout3d, fold_z=fold_z)
         if taps is not None:
+            if dhwc:
+                feat3d = feat3d.permute(0, 2, 3, 1, 4)
             taps.update({"feat3d": feat3d, "2d3dclassifer": logits})
         return logits
 

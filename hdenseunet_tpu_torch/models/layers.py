@@ -30,7 +30,9 @@ generator, so a step can be captured in a CUDA graph and replayed
 atomics.
 
 Inside :func:`count_flops` every :class:`Conv` forward adds its FLOPs to
-the open counter, the hook ``utils/flops.py`` counts the real graph with.
+the open counter, the hook ``utils/flops.py`` counts the real graph with;
+the execution forms of the 3D branch (models/s2d.py, zfold.py) add the
+direct convolution's through :meth:`Conv.count`.
 
 Numerical-parity notes carried over from the JAX kit:
 * encoder convs pad explicitly and symmetrically (ZeroPadding + VALID);
@@ -281,28 +283,43 @@ class Conv(nn.Module):
         )
         self.inits = {"kernel": init, "bias": "zeros"}
 
-    def forward(self, x):
+    def forward(self, x, perm=None):
+        """``perm``: the canonical axis that each of x's spatial axes holds,
+        for a tensor laid out in another spatial order (the d-major (D, H, W)
+        is (2, 0, 1), models/dmajor.py). The kernel, stride, dilation and a
+        per-axis padding are reordered to x's order; 'same' splits each axis
+        as it would in the canonical order."""
+        at = (lambda t: t) if perm is None else (lambda t: tuple(t[a] for a in perm))
+        ksize, stride, dilation = at(self.kernel_size), at(self.stride), at(self.dilation)
+        padding = self.padding if isinstance(self.padding, (str, int)) else at(self.padding)
         # the dilated kernel's extent; the MACs per output stay prod(kernel) * cin
-        span = [(k - 1) * d + 1 for k, d in zip(self.kernel_size, self.dilation)]
-        pads = conv_padding(x.shape[2:], span, self.stride, self.padding)
-        counter = _flop_counter.get()
-        if counter is not None:
-            out = [
-                (s + lo + hi - k) // st + 1
-                for s, (lo, hi), k, st in zip(x.shape[2:], pads, span, self.stride)
-            ]
-            counter.add(self.name, (
-                2.0 * int(x.shape[0]) * float(np.prod(out)) * self.kernel.shape[0]
-                * float(np.prod(self.kernel_size)) * int(x.shape[1])
-            ))
+        span = [(k - 1) * d + 1 for k, d in zip(ksize, dilation)]
+        pads = conv_padding(x.shape[2:], span, stride, padding)
+        out = [
+            (s + lo + hi - k) // st + 1 for s, (lo, hi), k, st in zip(x.shape[2:], pads, span, stride)
+        ]
+        self.count(int(x.shape[0]) * float(np.prod(out)), int(x.shape[1]))
         w = self.kernel.to(x.dtype)
+        if perm is not None:
+            w = channels_last(w.permute(0, 1, *(2 + a for a in perm)))
         b = None if self.bias is None else self.bias.to(x.dtype)
         conv = F.conv2d if self.ndim == 2 else F.conv3d
         if all(lo == hi for lo, hi in pads):
-            y = conv(x, w, b, self.stride, [lo for lo, _ in pads], self.dilation)
+            y = conv(x, w, b, stride, [lo for lo, _ in pads], dilation)
         else:
-            y = conv(channels_last(F.pad(x, _pad_arg(pads))), w, b, self.stride, 0, self.dilation)
+            y = conv(channels_last(F.pad(x, _pad_arg(pads))), w, b, stride, 0, dilation)
         return channels_last(y)
+
+    def count(self, outputs: float, cin: int):
+        """Add ``2 * outputs * features * prod(kernel) * cin`` to the open
+        :func:`count_flops` counter, if any: this layer's useful FLOPs for
+        ``outputs`` output positions (batch times spatial), however the
+        convolution is executed (models/s2d.py, zfold.py)."""
+        counter = _flop_counter.get()
+        if counter is not None:
+            counter.add(self.name, (
+                2.0 * outputs * self.kernel.shape[0] * float(np.prod(self.kernel_size)) * cin
+            ))
 
 
 class BatchNorm(nn.Module):

@@ -95,10 +95,8 @@ def create_train_state(cfg: Config, arch: str | None = None, *, device="cuda", s
     """Model from the port's seeded initializer, the stage's optimizer,
     step 0 and the dropout generator, on ``device``."""
     arch = arch or cfg.train.arch
-    if arch != "2d" and cfg.model.layout3d != "hwdc":
-        raise NotImplementedError("the d-major 3D layout is a TPU lever and is not ported")
     seed = cfg.train.seed if seed is None else seed
-    model = init_model(build_model(cfg, arch), seed).to(device)  # stem_s2d: the direct stem
+    model = init_model(build_model(cfg, arch), seed).to(device)
     opt, labels = make_optimizer(
         model, arch, cfg.train.lr, cfg.train.momentum, cfg.train.nesterov
     )
@@ -112,12 +110,17 @@ def forward_loss(
 ):
     """The stage's loss on a device batch (trainer.py:84-125); ``ctx`` None
     is the eval forward (moving statistics, no dropout). Under ``mesh`` the
-    batch is this rank's rows and the loss the global batch's."""
+    batch is this rank's rows and the loss the global batch's. The hybrid
+    stages run the 3D branch in ``cfg.model``'s form (``layout3d``,
+    ``stem_s2d``); under 'dhwc' dropout keeps elements by their index in the
+    d-major memory order, another draw of the same distribution."""
     image = batch["image"].to(getattr(torch, cfg.model.compute_dtype))
     if arch == "2d":
         _, logits = model(image, ctx, bn_frozen=False, decoder_dropout=0.3)
         return weighted_crossentropy_2d(logits, batch["label"], weights, mesh)
-    logits = model(image, ctx, arch=arch)
+    logits = model(
+        image, ctx, arch=arch, layout3d=cfg.model.layout3d, stem_s2d=cfg.model.stem_s2d
+    )
     if cfg.train.mask_boundary_slices:
         return weighted_crossentropy_hybrid(logits, batch["label"], weights, mesh)
     return weighted_crossentropy_2d(

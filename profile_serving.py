@@ -110,7 +110,10 @@ def cuda_ms(fn, iters: int = 5) -> float:
 
 @torch.inference_mode()
 def model_parts(model, cfg, card: str) -> None:
-    """ms of the 2D branch, 3D branch and head at one window run's shapes."""
+    """ms of the 2D branch, 3D branch and head at one window run's shapes,
+    the 3D branch and head in the form the config serves."""
+    from hdenseunet_tpu_torch.infer.device_pipeline import forms
+
     wb, cols, stride = cfg.infer.window_batch, cfg.infer.input_cols, cfg.infer.window_stride
     n2d = (wb - 1) * stride + cols - 2 + 2 * wb  # interior stacks + two edges per window
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -118,12 +121,15 @@ def model_parts(model, cfg, card: str) -> None:
     stacks = (50 * torch.randn(n2d, 512, 512, 3, device="cuda", generator=gen)).to(dt)
     feat2d, logits2d = model.net2d(stacks)
     input3d = torch.randn(wb, 512, 512, cols, 4, device="cuda", generator=gen).to(dt)
-    feat3d, _ = model.net3d(input3d)
-    fea2d = torch.randn_like(feat3d)  # the head's 2D input has the 3D features' shape
+    form = forms(cfg.infer)
+    kw3d = dict(layout=form["layout3d"], stem_s2d=form["stem_s2d"],
+                unfold_outputs=form["layout3d"] != "dhwc")
+    feat3d, _ = model.net3d(input3d, **kw3d)
+    fea2d = torch.randn(wb, 512, 512, cols, feat2d.shape[-1], device="cuda", generator=gen).to(dt)
     parts = {
         f"2d branch ({n2d} stacks)": lambda: model.net2d(stacks),
-        f"3d branch ({wb} windows)": lambda: model.net3d(input3d),
-        "hff head": lambda: model.head(feat3d, fea2d),
+        f"3d branch ({wb} windows, {form})": lambda: model.net3d(input3d, **kw3d),
+        "hff head": lambda: model.head(feat3d, fea2d, layout=form["layout3d"]),
     }
     for name, fn in parts.items():
         print(f"model part {name}: {cuda_ms(fn):.2f} ms per window run [{card}]")

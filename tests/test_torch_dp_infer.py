@@ -8,7 +8,8 @@ Two ranks (this file run as a script, launched by
 tiny-preset weights from the JAX ``hybrid.init``, window_batch 8 (4 windows
 per rank): the dedup-2D and per-window scorers and the host-loop
 WindowPredictor hold to JAX's mesh scorers at atol 1e-5
-(tests/test_infer.py:248-262, :381-396); the labelmask and the segmented
+(tests/test_infer.py:248-262, :381-396), the dedup-2D one also with the
+d-major 3D branch; the labelmask and the segmented
 labelmap equal the port's single process's byte for byte, at thresholds
 with no probability within 1e-5 of them; a window_batch the ranks do not
 divide, and the shared-2D mode, raise.
@@ -37,6 +38,12 @@ from test_torch_parallel import join, run_ranks
 SHAPE = (48, 40, 28)
 PROB_TOL = 1e-5  # float32 both sides, as tests/test_torch_infer.py
 MEAN = 48.0  # InferConfig.mean: segment() subtracts it
+# the mesh scorers held to JAX's: InferConfig fields (the d-major 3D branch
+# with the direct stem besides the shipped form)
+SCORERS = {
+    "dedup": {}, "per_window": dict(dedup_2d=False),
+    "dedup_dhwc": dict(layout3d="dhwc", stem_s2d=False),
+}
 
 
 def volume_case():
@@ -80,8 +87,8 @@ def worker(job: dict) -> None:
     mesh = M.make_mesh("cpu")
     vol, ext, lo, hi = volume_case()
     out = {}
-    for name, cfg in (("dedup", InferConfig()), ("per_window", InferConfig(dedup_2d=False))):
-        scorer = DeviceVolumeScorer(port_model(init), cfg, device="cpu", mesh=mesh)
+    for name, knobs in SCORERS.items():
+        scorer = DeviceVolumeScorer(port_model(init), InferConfig(**knobs), device="cpu", mesh=mesh)
         out[name] = scorer.score(vol, lo, hi).numpy()
     out["window"] = np.stack(
         WindowPredictor(port_model(init), InferConfig(), device="cpu", mesh=mesh).predict_volume(vol, lo, hi),
@@ -150,13 +157,13 @@ def jax_mesh():
     return make_mesh(jax.devices()[:2])
 
 
-@pytest.mark.parametrize("path", ["dedup", "per_window"])
+@pytest.mark.parametrize("path", list(SCORERS))
 def test_device_scorer_matches_jax_mesh_scorer(init, ranks, path):
     from hdenseunet_tpu.core.config import InferConfig as JInferConfig
     from hdenseunet_tpu.infer import device_pipeline as JD
 
     vol, _, lo, hi = volume_case()
-    cfg = JInferConfig(dedup_2d=path == "dedup")
+    cfg = JInferConfig(**SCORERS[path])
     want = np.asarray(JD.DeviceVolumeScorer(*init, cfg, preset="tiny", mesh=jax_mesh()).score(vol, lo, hi))
     a, b = (out[path] for out in ranks.result())
     assert np.array_equal(a, b)  # every rank holds the same scores

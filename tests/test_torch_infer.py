@@ -31,9 +31,9 @@ from hdenseunet_tpu_torch.infer.predictor import VolumePredictor, predict_direct
 from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
 
 REPO = Path(__file__).resolve().parent.parent
-# float32 on both sides; convs sum in another order and the JAX scorer runs
-# its shipped space-to-depth stem (equal to the direct stem up to summation
-# order): probabilities in [0, 1] agree to a few fp32 ulps per layer
+# float32 on both sides, both scorers running the shipped space-to-depth
+# stem; convs sum in another order: probabilities in [0, 1] agree to a few
+# fp32 ulps per layer
 PROB_TOL = 1e-5
 LIVER, TUMOR = 1, 2
 

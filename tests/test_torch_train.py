@@ -48,11 +48,14 @@ STAT_TOL = dict(atol=1e-5, rtol=1e-4)
 GRAD_MAX_RTOL = {"2d": None, "3dpart": 5e-2, "end2end": 5e-2}
 
 
-def configs(arch):
-    """(JAX Config, the port's Config) for a tiny-preset stage."""
+def configs(arch, **model):
+    """(JAX Config, the port's Config) for a tiny-preset stage; ``model``
+    sets ModelConfig fields (the 3D branch's form: layout3d, stem_s2d)."""
     cfg = JConfig()
     cfg.model.preset, cfg.model.input_size, cfg.model.input_cols = "tiny", SIZE, COLS
     cfg.train.arch, cfg.train.batch = arch, BATCH
+    for field, value in model.items():
+        setattr(cfg.model, field, value)
     return cfg, Config.from_json(cfg.to_json())
 
 
@@ -67,10 +70,10 @@ def make_batch(arch, seed=0):
     return next(synthetic_batches(mode=mode, batch=BATCH, input_size=SIZE, input_cols=COLS, seed=seed))
 
 
-def jax_step(arch, params, state, batch):
+def jax_step(arch, params, state, batch, **model):
     """The JAX package's step with dropout as the identity: loss, grads, new
     moving statistics and the parameters after make_optimizer's update."""
-    cfg, _ = configs(arch)
+    cfg, _ = configs(arch, **model)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JL, "dropout", lambda ctx, x, rate: x)
         fn = jax.jit(jax.value_and_grad(
@@ -86,17 +89,17 @@ def jax_step(arch, params, state, batch):
     )
 
 
-def port_state(arch, params, state, *, remat=True):
-    _, pcfg = configs(arch)
+def port_state(arch, params, state, *, remat=True, **model):
+    _, pcfg = configs(arch, **model)
     pcfg.train.remat = remat
     st = T.create_train_state(pcfg, arch, device="cpu")
     P.from_numpy(st.model, params, state)
     return st, pcfg
 
 
-def port_step(arch, params, state, batch, monkeypatch, *, remat=True):
+def port_step(arch, params, state, batch, monkeypatch, *, remat=True, **model):
     monkeypatch.setattr(L, "dropout", lambda x, rate, seed=None: x)
-    st, pcfg = port_state(arch, params, state, remat=remat)
+    st, pcfg = port_state(arch, params, state, remat=remat, **model)
     loss = T.train_step(st, batch, pcfg)
     return st, float(loss)
 
@@ -425,10 +428,12 @@ def test_nan_batch_raises(tmp_path):
      ("checkpoint_dir", "ck"), ("resume", True), ("init_weights", {})],
 )
 def test_unported_training_options_raise(tmp_path, field, value):
-    """The TPU levers raise. Checkpoints, resume, the warm start,
-    remat_policy='convs' and steps_per_dispatch have been ported since, and
-    the loop now takes them (test_torch_checkpoint.py, test_torch_cli.py,
-    test_torch_remat.py and test_torch_multistep.py test what they do)."""
+    """No training option raises any more. Checkpoints, resume, the warm
+    start, remat_policy='convs', steps_per_dispatch and the d-major 3D
+    layout have been ported since, and the loop now takes them
+    (test_torch_checkpoint.py, test_torch_cli.py, test_torch_remat.py,
+    test_torch_multistep.py and test_torch_forms_train.py test what they
+    do)."""
     pcfg = _loop_cfg(tmp_path)
     kwargs = {}
     if field == "steps_per_dispatch":  # a group of 2 and a single step after it
@@ -452,12 +457,12 @@ def test_unported_training_options_raise(tmp_path, field, value):
         if field == "init_weights":  # a warm start from nothing loads nothing
             assert logged == ["warm start: 0 layers loaded, 0 skipped, 0 shape-mismatched"]
         return
-    if field == "layout3d":
-        pcfg.model.layout3d = value
-    else:
-        setattr(pcfg.train, field, value)
-    with pytest.raises(NotImplementedError):
-        T.train(pcfg, iter(()), max_steps=1, device="cpu", **kwargs)
+    assert field == "layout3d"  # two d-major steps, finite losses
+    pcfg.model.layout3d = value
+    batches = synthetic_batches(mode="hybrid", batch=BATCH, input_size=SIZE, input_cols=COLS, seed=1)
+    assert T.train(pcfg, batches, max_steps=2, device="cpu", log_fn=lambda *a: None).step == 2
+    losses = (tmp_path / "history" / "lossbatch.txt").read_text().split()
+    assert len(losses) == 2 and all(np.isfinite(float(v)) for v in losses)
 
 
 def test_scorer_after_training_serves_the_trained_weights(inits):
