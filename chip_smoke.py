@@ -55,6 +55,19 @@ failure exits non-zero):
      full; z lengths 4, 8, 12 modulo 16; a 4-byte offset); times warm and
      with the L2 flushed (K4a-c also at random p=0.3), bounds and kernels
      per call;
+   - k3 (window_accumulate and score_finish, ops/score.py) against their
+     plain versions on the card, bit for bit: K3a on the first two live
+     window batches of the first volume (the scorer's own logits, the
+     plan's starts and weights) and on seeded batches at the served shape
+     (a stride-2 run with a weight-0 window and multiplicities 2-3, the
+     per-window grid's non-aligned starts, float32 logits, logits in the
+     dhwc route's memory order); K3b on that volume's summed score buffer
+     at the served zp and pack_z, labels and wire, with scores set on the
+     thresholds' ties; times warm and with the L2 flushed, the plain
+     versions' in turns, bounds, kernels per call; then both volumes
+     through ``segment`` with K3's plain versions (serve_plain_k3):
+     labelmaps byte-identical to phase 4's, device scoring s/volume in
+     turns with K3 and with its plain versions;
    - forms (the 3D branch's execution forms, phase 4's weights; TF32 off
      for every float32 comparison): the stem alone at the serving shape (8
      windows of 512x512x8, 4 channels, bfloat16), the direct conv against
@@ -152,7 +165,7 @@ failure exits non-zero):
 then a JSON line describing the kernels, and the last line
 {"ok": true, "device": {...}}.
 
-Each path of phases 4-6, 8 and 9 (serve, serve_dpp, serve_dpp_dense,
+Each path of phases 4-6, 8 and 9 (serve, serve_dpp, serve_dpp_dense, serve_plain_k3,
 serve_per_window, serve_shared_2d, serve_uint8, serve_host_loop, serve_tiled,
 mfu, trace, forms_* (one branch forward or one scoring a form), forms_score_*,
 forms_train_end2end, train_*, train_end2end_convs, train_graph_*, cli_*, cli_test_tiled, parity,
@@ -221,6 +234,12 @@ BUILD = Path(__file__).resolve().parent / "build"
 K12_NAMES = ("affine_relu", "affine_relu_backward", "wce_forward", "wce_backward")
 K4_NAMES = ("cc_label", "largest_component", "fill_holes", "compose_prep", "compose_finish")
 K4_SHAPE = (512, 512, 112)  # LiTS in-plane size, 112 slices
+K3_NAMES = ("window_accumulate", "score_finish")
+# K3's operations, for its bound: per voxel and window, for each of the 3
+# classes a subtract, an exp, a divide and a fused multiply-add (2), then 2
+# max and 2 adds across the classes (K3a); per voxel an add, 2 divides and
+# 2 compares (K3b)
+K3A_OPS, K3B_OPS = 19, 5
 # K4 wrapper calls per served volume as compose_labels makes them: 2 largest
 # components and 3 hole fills, each counted once as a labelling (its brick
 # and merge kernels are cc_label's), one prep and one finish
@@ -359,12 +378,13 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def counters() -> dict:
-    from hdenseunet_tpu_torch.ops import cc, fused_affine as K, wce as W
+    from hdenseunet_tpu_torch.ops import cc, fused_affine as K, score as S, wce as W
 
     return {
         "affine_relu": K.affine_relu, "affine_relu_backward": K.affine_relu_backward,
         "wce_forward": W.wce_forward, "wce_backward": W.wce_backward,
         **{name: getattr(cc, name) for name in K4_NAMES},
+        **{name: getattr(S, name) for name in K3_NAMES},
     }
 
 
@@ -778,6 +798,7 @@ def serve_path(card: str) -> dict:
         scoring.append(time.perf_counter() - t0)
 
     assert launches["affine_relu"] >= bsr_per_forward * runs, (launches, bsr_per_forward, runs)
+    assert launches["window_accumulate"] == runs and launches["score_finish"] == len(cases), launches
     for (vol, _), lab in zip(cases, labelmaps):
         assert lab.dtype == np.uint8 and lab.shape == vol.shape, (lab.dtype, lab.shape)
         assert set(np.unique(lab).tolist()) <= {0, 1, 2}, np.unique(lab)
@@ -819,7 +840,8 @@ def mfu_path(card: str, serve: dict) -> dict:
     d = sc.compute_seconds(np.asarray(vol, np.float32) - icfg.mean, z_lo, z_hi, detail=True)
     launches = read_counts()
     # both phase 4 volumes share one plan, so each scoring runs half its K1 launches
-    assert launches == only(affine_relu=12 * serve["launches"]["affine_relu"] // 2), launches
+    assert launches == only(affine_relu=12 * serve["launches"]["affine_relu"] // 2,
+                            window_accumulate=12 * serve["runs"]), launches
     mfu = flops / d["seconds"] / peak
     assert 0.0 < mfu < 1.0, mfu
     print(
@@ -858,7 +880,8 @@ def trace_path(card: str, serve: dict) -> dict:
         assert len(files) == 1, files
         text = files[0].read_text()
     assert np.array_equal(lab, serve["labelmaps"][0]), "the traced segment differs from phase 4's"
-    assert launches == only(affine_relu=serve["launches"]["affine_relu"] // 2), launches
+    assert launches == only(affine_relu=serve["launches"]["affine_relu"] // 2,
+                            window_accumulate=serve["runs"], score_finish=1), launches
     missing = [n for n in [f'"{scope}"' for scope in SCOPES] + ["affine_relu"] if n not in text]
     assert not missing, f"the trace names none of {missing}"
     by_op, spans = {}, {}
@@ -960,6 +983,195 @@ def with_plain_k1(fn):
         with plain_k1():
             return fn()
     return run
+
+
+@contextlib.contextmanager
+def plain_k3():
+    """The device scorer's window accumulate and finish through K3's plain
+    versions for the block, on the card too: the yardstick the served path
+    through K3 is held to. The plain versions count no launch."""
+    import types
+
+    from hdenseunet_tpu_torch.infer import device_pipeline as D
+    from hdenseunet_tpu_torch.ops import score as S
+
+    saved = D.K3
+    D.K3 = types.SimpleNamespace(
+        window_accumulate=S.window_accumulate_reference, score_finish=S.score_finish_reference)
+    try:
+        yield
+    finally:
+        D.K3 = saved
+
+
+def tie_scores(count: np.ndarray, rows: int, zs: int) -> tuple:
+    """Index arrays (x, y, z) and float32 scores (liver, tumour) that put
+    voxels of the first ``zs`` slices on the thresholds' ties, for the
+    per-z ``count``: at x = 0 an average of exactly 0.5 in the liver
+    channel, at x = 1 one ulp below, at x = 2 exactly float32(0.9) in the
+    tumour channel, at x = 3 the next score below, each at y = z % rows with
+    the other channel 0. A slice whose count + 1e-4 no score divides to
+    exactly float32(0.9) gets the 0.5 ties only."""
+    t, down, up = np.float32(0.9), np.float32(0), np.float32(np.inf)
+    xs, ys, zz, values = [], [], [], []
+    for z in range(zs):
+        d = np.float32(count[z] + np.float32(1e-4))
+        half = np.float32(0.5) * d
+        ties = [(0, half, 0), (1, np.nextafter(half, down), 0)]
+        cand = np.float32(t * d)
+        while np.float32(cand / d) < t:
+            cand = np.nextafter(cand, up)
+        while np.float32(cand / d) > t:
+            cand = np.nextafter(cand, down)
+        if np.float32(cand / d) == t:
+            lower = cand
+            while np.float32(lower / d) == t:
+                lower = np.nextafter(lower, down)
+            ties += [(2, 0, cand), (3, 0, lower)]
+        for x, liver, tumor in ties:
+            xs.append(x), ys.append(z % rows), zz.append(z), values.append((liver, tumor))
+    return np.array(xs), np.array(ys), np.array(zz), np.float32(values)
+
+
+def check_k3(card: str, serve: dict) -> dict:
+    """K3 on the card against its plain versions, bit for bit:
+    window_accumulate (K3a) on the first two live window batches of phase
+    4's first volume (the scorer's own logits, the plan's starts and
+    weights) and on seeded batches at the served shape (a stride-2 run with
+    a weight-0 window and multiplicities 2-3, the per-window grid's
+    non-aligned overlapping starts, float32 logits, logits in the dhwc
+    route's memory order), each into a seeded partly filled buffer;
+    score_finish (K3b) on that volume's summed score buffer at the served
+    zp (labels over zp and over pack_z, the wire over pack_z) with voxels
+    set on the thresholds' ties. Times at the first served batch and the
+    served finish, warm and L2-flushed, the plain versions' in turns,
+    bounds, kernels per call. Then both volumes through ``segment`` with
+    K3's plain versions: labelmaps byte-identical to phase 4's, device
+    scoring s/volume in turns with K3 and without. Returns the JSON numbers
+    per kernel and the plain path's launch counts."""
+    from hdenseunet_tpu_torch.infer import postprocess
+    from hdenseunet_tpu_torch.ops import score as S
+
+    predictor = serve["predictor"]
+    sc, icfg = predictor.windows, predictor.cfg.infer
+    cols, t_l, t_t = icfg.input_cols, icfg.thres_liver, icfg.thres_tumor
+    vol, ext = serve["cases"][0]
+    _, z_lo, z_hi = postprocess.liver_mask_extent(ext)
+    img = np.asarray(vol, np.float32) - icfg.mean
+    plan = sc.plan(vol.shape, z_lo, z_hi)
+    wb = plan["wb"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    with torch.inference_mode():
+        vol_d = sc._wire(img, plan)
+        x, y, zp = vol_d.shape
+        run = sc._dedup_batch(vol_d, wb)
+        live = [(s.astype(np.int64), w) for s, w in zip(plan["starts"], plan["weights"]) if w.any()]
+        served = [(run(s), s, w) for s, w in live[:2]]
+
+        def synth(dtype, order=None):
+            lg = 3 * torch.randn((wb, x, y, cols, 3), device="cuda", generator=gen)
+            if order == "dhwc":  # the same logical tensor, d-major in memory
+                lg = lg.permute(0, 3, 1, 2, 4).contiguous().permute(0, 2, 3, 1, 4)
+            return lg.to(dtype)
+
+        run2 = (np.arange(wb) * 2 + 20, np.float32([1, 0, 2, 1, 3, 1, 1, 2]))
+        grid = [(np.int64([3, 4, 9, 10, 11, 17, 25, 40]), np.float32([1, 2, 1, 1, 3, 1, 1, 2])),
+                (np.int64([41, 47, 50, 53, 55, 56, 62, zp - cols]), np.float32([1, 1, 2, 1, 0, 1, 0, 3]))]
+        cases = {
+            "served batches 1-2 (bf16)": served,
+            "stride-2 run, weight 0, multiplicities 2-3 (bf16)": [(synth(torch.bfloat16), *run2)],
+            "per-window grid, non-aligned starts (bf16)": [(synth(torch.bfloat16), *g) for g in grid],
+            "float32 logits": [(synth(torch.float32), *run2)],
+            "dhwc memory order (bf16)": [(synth(torch.bfloat16, "dhwc"), *run2)],
+        }
+        base = torch.rand((x, y, zp, 3), device="cuda", generator=gen)
+        base_count = torch.randint(0, 4, (zp,), device="cuda", generator=gen).float()
+        for label, batches in cases.items():
+            got = (base.clone(), base_count.clone())
+            want = (base.clone(), base_count.clone())
+            for lg, s, w in batches:
+                S.window_accumulate(*got, lg, s, w, cols=cols)
+                S.window_accumulate_reference(*want, lg, s, w, cols=cols)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), f"K3a {label}"
+        print(f"K3 window_accumulate: {len(cases)} cases at {x}x{y}, zp {zp}, {cols} columns, "
+              f"window batch {wb} ({', '.join(cases)}): score and count equal the plain version bit "
+              f"for bit [{card}]")
+
+        score, count = sc._sums(vol_d, plan)
+        tied = score.clone()
+        ix, iy, iz, values = tie_scores(count.cpu().numpy(), y, plan["zw"])
+        idx = [torch.from_numpy(a).cuda() for a in (ix, iy, iz)]
+        tied[idx[0], idx[1], idx[2], 1:] = torch.from_numpy(values).cuda()
+        finishes = [("labels", None), ("labels", plan["zw"]), ("wire", plan["zw"])]
+        for buf, label in ((score, "served"), (tied, "ties")):
+            for out, pack_z in finishes:
+                got = S.score_finish(buf, count, t_l, t_t, out=out, pack_z=pack_z)
+                want = S.score_finish_reference(buf, count, t_l, t_t, out=out, pack_z=pack_z)
+                assert torch.equal(got, want), f"K3b {label} {out} pack_z={pack_z}"
+        lab = S.score_finish(tied, count, t_l, t_t, out="labels", pack_z=plan["zw"])[idx[0], idx[1], idx[2]]
+        tie_labels = [sorted(set(lab[idx[0] == r].tolist())) for r in range(4)]
+        assert tie_labels == [[1], [0], [3], [0]], tie_labels
+        print(f"K3 score_finish: served score buffer {tuple(score.shape)} and with {len(ix)} voxels on "
+              f"the thresholds' ties (0.5 and float32(0.9) exactly, one ulp under), labels over zp "
+              f"and over pack_z {plan['zw']}, the wire over pack_z: equal the plain version byte for "
+              f"byte; tie labels {tie_labels} [{card}]")
+
+        # times: the first served batch into a copy of the summed buffer, the served finish
+        lg, s, w = served[0]
+        acc_k, acc_p = (score.clone(), count.clone()), (score.clone(), count.clone())
+        n_live = int((w != 0).sum())
+        lo, hi = int(s[w != 0].min()) + 1, int(s[w != 0].max()) + cols - 1
+        calls = {  # name: (kernel, plain, bytes in + out, operations)
+            "window_accumulate": (
+                lambda: S.window_accumulate(*acc_k, lg, s, w, cols=cols),
+                lambda: S.window_accumulate_reference(*acc_p, lg, s, w, cols=cols),
+                n_live * x * y * (cols - 2) * 3 * lg.element_size() + 2 * (x * y * 3 + 1) * (hi - lo) * 4,
+                K3A_OPS * n_live * x * y * (cols - 2)),
+            "score_finish": (
+                lambda: S.score_finish(score, count, t_l, t_t, out="wire", pack_z=plan["zw"]),
+                lambda: S.score_finish_reference(score, count, t_l, t_t, out="wire", pack_z=plan["zw"]),
+                x * y * plan["zw"] * (3 * 4 + 0.25) + plan["zw"] * 4,
+                K3B_OPS * x * y * plan["zw"]),
+        }
+        out = {}
+        for name, (kernel, plain, n_bytes, n_ops) in calls.items():
+            ms, plain_ms = in_turns(kernel, plain)
+            b = bound(n_bytes, n_ops)
+            out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, cold_ms=cold_ms(kernel), **b,
+                             kernels_per_call=kernels_per_call(kernel, 1), cases=len(cases) if
+                             name == "window_accumulate" else 2 * len(finishes))
+            print(f"K3 {name} (served: {n_live} live windows of {wb}, z-span {hi - lo}; finish over "
+                  f"pack_z {plan['zw']} of zp {zp}): kernel {ms:.4f} ms, L2 flushed "
+                  f"{out[name]['cold_ms']:.4f} ms (1 kernel), plain {plain_ms:.4f} ms (in turns), bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {n_bytes / 1e6:.1f} MB) [{card}]")
+        del acc_k, acc_p, served, cases, base, score, count, tied
+
+    # the served path with K3's plain versions
+    reset_counts()
+    with plain_k3():
+        labelmaps = [predictor.segment(v, e) for v, e in serve["cases"]]
+    launches = read_counts()
+    assert launches["window_accumulate"] == 0 and launches["score_finish"] == 0, launches
+    assert launches["affine_relu"] == serve["launches"]["affine_relu"], launches
+    for got, want in zip(labelmaps, serve["labelmaps"]):
+        assert np.array_equal(got, want), "serve_plain_k3: the labelmap differs from phase 4's"
+    scoring = {"k3": [], "plain": []}
+    for v, e in serve["cases"]:
+        _, lo_z, hi_z = postprocess.liver_mask_extent(e)
+        v_img = np.asarray(v, np.float32) - icfg.mean
+        for way in ("k3", "plain", "plain", "k3"):  # in turns
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with plain_k3() if way == "plain" else contextlib.nullcontext():
+                sc.labelmask_async(v_img, lo_z, hi_z)
+                torch.cuda.synchronize()
+            scoring[way].append(time.perf_counter() - t0)
+    print(f"K3 served path: both volumes through segment with K3's plain versions: labelmaps "
+          f"byte-identical to phase 4's (K3); device scoring s/volume in turns, with K3 "
+          f"{[round(v, 4) for v in scoring['k3']]}, plain {[round(v, 4) for v in scoring['plain']]} "
+          f"(volume 1 then 2, two each) [{card}]")
+    return dict(numbers=out, launches=launches, scoring=scoring)
 
 
 def timed_steps(step, steps: int = 2) -> tuple[list[float], float]:
@@ -1355,6 +1567,7 @@ def serve_dpp_path(card: str, serve: dict) -> dict:
         vols = len(serve["cases"])
         assert all(launches[k] == n * vols for k, n in K4_PER_VOLUME.items()), launches
         assert launches["affine_relu"] >= serve["k1_floor"], launches
+        assert launches["window_accumulate"] == serve["runs"] * vols and launches["score_finish"] == vols, launches
         # the compose's buffers: 3 bool masks, int32 labels and sizes, outputs
         n = 512 * 512 * 128
         assert peak <= serve["peak"] + 16 * n + 2**30, (peak, serve["peak"])
@@ -1395,6 +1608,8 @@ def serve_modes(card: str, serve: dict) -> dict:
             seconds.append(time.perf_counter() - t0)
         launches = paths[path] = read_counts()
         assert launches["affine_relu"] > 0 and all(launches[k] == 0 for k in K4_NAMES), launches
+        live = int(predictor.windows.plan(vol.shape, z_lo, z_hi)["weights"].any(axis=1).sum())
+        assert launches["window_accumulate"] == 2 * live and launches["score_finish"] == 2, (launches, live)
         probs = predictor.windows.score(vol - cfg.infer.mean, z_lo, z_hi)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1651,8 +1866,9 @@ def forms_scoring(card: str, serve: dict) -> dict:
         reset_counts()
         labels[name] = scorers[name].labelmask(img, z_lo, z_hi)
         paths[f"forms_score_{name}"] = read_counts()
-        assert paths[f"forms_score_{name}"] == only(affine_relu=serve["launches"]["affine_relu"] // 2), (
-            name, paths[f"forms_score_{name}"])
+        assert paths[f"forms_score_{name}"] == only(
+            affine_relu=serve["launches"]["affine_relu"] // 2, window_accumulate=serve["runs"],
+            score_finish=1), (name, paths[f"forms_score_{name}"])
     seconds = {name: [] for name in forms}
     for name in list(forms) + list(forms)[::-1]:  # in turns
         torch.cuda.synchronize()
@@ -2356,6 +2572,7 @@ def cli_path(card: str, synthetic_ms: dict, bsr_per_forward: int) -> dict:
         launches["cli_test"] = read_counts()
         assert launches["cli_test"]["affine_relu"] > 0 and launches["cli_test"]["affine_relu_backward"] == 0
         assert all(launches["cli_test"][k] == 0 for k in ("wce_forward", "wce_backward", *K4_NAMES))
+        assert launches["cli_test"]["window_accumulate"] > 0 and launches["cli_test"]["score_finish"] == 1
         out, _ = nifti.read(root / "res" / "test-segmentation-0.nii")
         out = np.asarray(out)
         assert out.shape == vol.shape and set(np.unique(out).tolist()) <= {0, 1, 2}, np.unique(out)
@@ -2785,7 +3002,8 @@ def dp_two_ranks(card: str, one_steps: dict, exact_steps: dict, serve_ref: dict)
                 failed.append(("serve_dp_w2 ranks differ", r))
             counts = serve["launches"][0]
             if any(c != counts for c in serve["launches"]) or not counts["affine_relu"] or any(
-                    counts[k] for k in K4_NAMES + ("wce_forward", "wce_backward")):
+                    counts[k] for k in K4_NAMES + ("wce_forward", "wce_backward")) or not (
+                    counts["window_accumulate"] and counts["score_finish"] == 1):
                 failed.append(("serve_dp_w2", r, serve["launches"]))
         assert not failed, failed[:20]
         launches["serve_dp_w2"] = outs[0]["serve"]["launches"][0]
@@ -2915,6 +3133,8 @@ def main() -> None:
     paths["mfu"] = mfu_path(card, serve)
     paths["trace"] = trace_path(card, serve)
     k4 = check_k4(card, serve)
+    k3 = check_k3(card, serve)
+    paths["serve_plain_k3"] = k3["launches"]
     paths.update(forms_serve_path(card, serve))
     bsr_per_forward = serve["bsr_per_forward"]
     serve_ref = dict(labelmap=serve["labelmaps"][0], probs=serve["probs"], seconds=serve["seconds"],
@@ -2959,9 +3179,11 @@ def main() -> None:
         ("fill_holes", "cc.cu", "infer/device_postprocess.py:259", k4["fill_holes"]),
         ("compose_prep", "cc.cu", "infer/device_postprocess.py:313", k4["compose_prep"]),
         ("compose_finish", "cc.cu", "infer/device_postprocess.py:379", k4["compose_finish"]),
+        ("window_accumulate", "score.cu", "infer/device_pipeline.py:1178", k3["numbers"]["window_accumulate"]),
+        ("score_finish", "score.cu", "infer/device_pipeline.py:1195", k3["numbers"]["score_finish"]),
     ):
-        main_path = "serve_dpp" if source == "cc.cu" else "train_end2end"
-        per = {"launches_per_volume": paths[main_path][name] // 2} if source == "cc.cu" else {
+        main_path = {"cc.cu": "serve_dpp", "score.cu": "serve"}.get(source, "train_end2end")
+        per = {"launches_per_volume": paths[main_path][name] // 2} if main_path != "train_end2end" else {
             "launches_per_step": paths[main_path][name] // TRAIN_STEPS}
         kernels.append({
             "name": name,

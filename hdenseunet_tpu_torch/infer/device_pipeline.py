@@ -3,8 +3,10 @@ hdenseunet_tpu/infer/device_pipeline.py's ``DeviceVolumeScorer``).
 
 Per volume: one h2d of the z-cropped volume in the compute dtype -> window
 runs through the hybrid -> fp32 softmax, edge-slice drop and
-multiplicity-weighted accumulate -> overlap average -> threshold -> labelmask
--> one small d2h. PyTorch queues the work asynchronously, so
+multiplicity-weighted accumulate (K3a, ``ops/score.window_accumulate``, one
+launch a batch) -> overlap average -> threshold -> labelmask or its 2-bit
+wire (K3b, ``ops/score.score_finish``, one launch a volume) -> one small
+d2h. PyTorch queues the work asynchronously, so
 ``labelmask_async`` returns before the card is done and ``labelmask_collect``
 waits.
 
@@ -55,7 +57,9 @@ import torch.nn.functional as F
 from ..core.mesh import axis_group, axis_rank, axis_size, replicate
 from ..models.hybrid import HDenseUNet
 from ..models import layers as L
+from ..ops import score as K3
 from ..ops.cc import pack2bits
+from ..ops.score import pack_labels  # noqa: F401  (the scorer's threshold, re-exported)
 from .device_postprocess import compose_final, compose_packed
 from .sliding_window import window_starts
 
@@ -152,13 +156,6 @@ def assembly_map(wb: int, cols: int, stride: int) -> np.ndarray:
         for p in range(1, cols - 1):
             asm[j, p] = stride * j + p - 1
     return asm
-
-
-def pack_labels(score, thres_liver: float, thres_tumor: float, *, num_classes: int = 3):
-    """Threshold -> uint8 mask: bit0 liver-or-tumor, bit1 tumor (test.py:73-77)."""
-    liver = score[..., num_classes - 2] >= thres_liver
-    tumor = score[..., num_classes - 1] >= thres_tumor
-    return (liver | tumor).to(torch.uint8) + 2 * tumor.to(torch.uint8)
 
 
 def unpack2bits(buf: np.ndarray) -> np.ndarray:
@@ -352,19 +349,6 @@ class DeviceVolumeScorer:
         wire = torch.from_numpy(vol_p).to(self.dtype).to(self.device)
         return F.pad(wire, (0, p["zp"] - p["zw"], 0, p["yp"] - y0, 0, p["xp"] - x0))
 
-    def _accumulate(self, score, count, probs, s_i, w_i):
-        """Add each window's weighted interior probabilities (the two z-edge
-        slices dropped) into the score buffer; weight-0 windows add nothing
-        and are skipped."""
-        inner = self.cfg.input_cols - 2
-        for j in range(len(s_i)):
-            w = float(w_i[j])
-            if w == 0.0:
-                continue
-            sj = int(s_i[j]) + 1
-            score[:, :, sj : sj + inner].add_(probs[j, :, :, 1:-1], alpha=w)
-            count[sj : sj + inner] += w
-
     def _windows(self, vol_d, s_i):
         """(wb, x, y, cols, 1) windows at starts s_i, each start clamped into
         the buffer as ``lax.dynamic_slice`` clamps it."""
@@ -374,9 +358,11 @@ class DeviceVolumeScorer:
         return vol_w.permute(2, 0, 1, 3).unsqueeze(-1)
 
     @torch.inference_mode()
-    def _score(self, vol_d, p: dict):
-        """Averaged probabilities (xp, yp, zp, C) float32 on the device, from
-        the plan ``p``'s wire ``vol_d`` already on the device (:meth:`_wire`).
+    def _sums(self, vol_d, p: dict):
+        """(score (xp, yp, zp, C), count (zp,)) float32 on the device, not
+        yet averaged, from the plan ``p``'s wire ``vol_d`` already on the
+        device (:meth:`_wire`): every window batch's logits go through
+        ``ops.score.window_accumulate`` (K3a).
 
         Batches whose weights are all zero (the plan's bucket padding) are
         skipped, and so are weight-0 windows in the accumulate: both add
@@ -402,11 +388,28 @@ class DeviceVolumeScorer:
         for s_i, w_i in zip(p["starts"].astype(np.int64), p["weights"]):
             s_i, w_i = s_i[rank * wb : (rank + 1) * wb], w_i[rank * wb : (rank + 1) * wb]
             if w_i.any():
-                self._accumulate(score, count, torch.softmax(run(s_i).float(), dim=-1), s_i, w_i)
+                K3.window_accumulate(score, count, run(s_i), s_i, w_i, cols=self.cfg.input_cols)
         group = axis_group(self.mesh)
         if group is not None:
             dist.all_reduce(acc, group=group)
-        return score / (count[None, None, :, None] + 1e-4)  # funcs.py:48
+        return score, count
+
+    @torch.inference_mode()
+    def _score(self, vol_d, p: dict):
+        """Averaged probabilities (xp, yp, zp, C) float32 on the device
+        (:meth:`_sums` over the count plus 1e-4, funcs.py:48)."""
+        score, count = self._sums(vol_d, p)
+        return score / (count[None, None, :, None] + 1e-4)
+
+    @torch.inference_mode()
+    def _finish(self, vol_d, p: dict, out: str, pack_z: int | None = None):
+        """The thresholded labels (uint8 {0, 1, 3}) or their 2-bit wire over
+        the first ``pack_z`` slices, from :meth:`_sums` in one launch
+        (``ops.score.score_finish``, K3b): the average is not written."""
+        score, count = self._sums(vol_d, p)
+        return K3.score_finish(
+            score, count, self.cfg.thres_liver, self.cfg.thres_tumor, out=out, pack_z=pack_z
+        )
 
     def _dedup_batch(self, vol_d, wb: int):
         """One stride-aligned run's logits: a 2D pass over the run's unique
@@ -480,13 +483,12 @@ class DeviceVolumeScorer:
             raise ValueError(f"unknown output {output!r}")
         x0, y0, z_full = vol.shape
         p = self.plan(vol.shape, mini_z, maxi_z)
-        probs = self._score(self._wire(vol, p), p)
+        if output == "packed":
+            probs = self._finish(self._wire(vol, p), p, "labels")
+        else:
+            probs = self._score(self._wire(vol, p), p)
         if output == "digest":
             return summarize(probs)
-        if output == "packed":
-            probs = pack_labels(
-                probs, self.cfg.thres_liver, self.cfg.thres_tumor, num_classes=self.num_classes
-            )
         return self._restore_z(probs[:x0, :y0, : p["z"]], p["z_lo"], z_full)
 
     def predict_volume(self, vol: np.ndarray, mini_z: int, maxi_z: int):
@@ -533,18 +535,12 @@ class DeviceVolumeScorer:
         p = self.plan(vol.shape, mini_z, maxi_z)
         ext_bits = self._ext_bits(ext_mask, p, vol.shape) if dpp else None
         with torch.inference_mode():
-            mask = pack_labels(
-                self._score(self._wire(vol, p), p), self.cfg.thres_liver, self.cfg.thres_tumor,
-                num_classes=self.num_classes,
-            )
+            kind = "wire" if bits == 2 and not dpp else "labels"
+            out = self._finish(self._wire(vol, p), p, kind, pack_z=p["zw"])
             if sparse:
-                out = compose_final(mask, ext_bits, pack_z=p["zw"])
+                out = compose_final(out, ext_bits, pack_z=p["zw"])
             elif dpp:
-                out = compose_packed(mask, ext_bits, pack_z=p["zw"])
-            elif bits == 2:
-                out = pack2bits(mask, pack_z=p["zw"])
-            else:
-                out = mask[:, :, : p["zw"]]
+                out = compose_packed(out, ext_bits, pack_z=p["zw"])
         return out, dict(
             bits=2 if dpp else bits, sparse=sparse,
             x0=x0, y0=y0, z=p["z"], z_lo=p["z_lo"], z_full=z_full,
