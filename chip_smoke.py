@@ -162,16 +162,28 @@ failure exits non-zero):
      CLI over NCCL (``chip_smoke.py cli-rank``), then this process resumes
      it for a step with no torchrun: the restored state equals the saved
      one bit for bit;
+10. bench: ``bench_torch.main`` (the port's counterpart of bench.py) in
+   this process at the full preset and bench.py's 512x512x192 volume, its
+   reps cut to fit this script's time (BENCH_ENV): every phase's cumulative
+   line, the last carrying every key of bench.py's line, no ``*_error``,
+   exit status 0, every served digest finite, ``value`` at least
+   ``compute_s_per_volume``; ``*_unreliable`` keys printed, not failed on.
+   bench_serve (its serving phases: headline, compute slope, attribution,
+   pipelined loop) counts K3a = the plans' live batches summed over every
+   scoring, K3b = the pipelined loop's labelmasks, K1 >= a forward's
+   launches per live batch; bench_train (the 2D stage, live BN, so no K1)
+   counts K2 once a step run eagerly or captured, never a replayed one.
+   The phase's wall seconds and the line are printed;
 then a JSON line describing the kernels, and the last line
 {"ok": true, "device": {...}}.
 
-Each path of phases 4-6, 8 and 9 (serve, serve_dpp, serve_dpp_dense, serve_plain_k3,
+Each path of phases 4-6 and 8-10 (serve, serve_dpp, serve_dpp_dense, serve_plain_k3,
 serve_per_window, serve_shared_2d, serve_uint8, serve_host_loop, serve_tiled,
 mfu, trace, forms_* (one branch forward or one scoring a form), forms_score_*,
 forms_train_end2end, train_*, train_end2end_convs, train_graph_*, cli_*, cli_test_tiled, parity,
 variants_legacy_serve, variants_legacy_train, variants_dilated,
 variants_parity, train_dp_w1_*, train_dp_w2_*, serve_dp_w2, cli_train_dp,
-cli_train_dp_resume)
+cli_train_dp_resume, bench_serve, bench_train)
 runs with every launch counter set to 0 just before it and read just after
 (in the process that runs it), and fails if a kernel of that path did not
 launch. A replayed CUDA graph launches its kernels without the wrappers:
@@ -289,6 +301,27 @@ DP_FLOAT32_GAP = 2.0**-9
 # differ by one bfloat16 ulp (2^-8 relative); 161 such layers and the convs
 # after them carry it to the logits. Relative L2 of the logits within 2^-5
 VARIANT_BF16_RTOL = 2.0**-5
+# The bench phase: bench_torch.main at the full preset and bench.py's
+# 512x512x192 volume, its reps cut to fit this script's time
+BENCH_ENV = dict(
+    BENCH_PRESET="full", BENCH_Z="192", BENCH_REPS="2", BENCH_COMPUTE_REPS="2",
+    BENCH_TRAIN_REPS="1", BENCH_TRAIN_STEPS="10", BENCH_TRAIN_SLOPE_REPS="2",
+    BENCH_TRAIN_K_SMALL="4", BENCH_TRAIN_K_BIG="16", BENCH_PIPELINE_VOLUMES="2",
+)
+# bench.py's keys (bench.py:450-462) when every phase runs; then for each
+# slope, the set it prints when the slope is reliable and the one when not
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "model_tflops", "achieved_tflops", "mfu",
+    "compute_spread", "compute_t_small_s", "compute_t_big_s", "compute_k_big",
+    "dispatch_s", "h2d_s", "wire_mb",
+    "pipelined_s_per_volume", "pipelined_volumes", "pipelined_vs_baseline",
+    "train_ms_per_step", "train_slices_per_s_chip", "train_mfu", "train_compute_spread",
+)
+BENCH_EITHER = (
+    (("compute_s_per_volume", "compute_mfu", "decomp_gap_s"), ("compute_unreliable",)),
+    (("train_compute_ms_per_step", "train_compute_slices_per_s_chip", "train_compute_mfu"),
+     ("train_compute_unreliable", "train_compute_t_small_s", "train_compute_t_big_s")),
+)
 
 
 def card_line() -> str:
@@ -3110,6 +3143,84 @@ def cli_train_dp(card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def bench_path(card: str) -> dict:
+    """Phase 10: ``bench_torch.main`` in this process under BENCH_ENV, its
+    line checked (module docstring). Every scoring's plan and every served
+    digest are noted on the way, by wrapping ``DeviceVolumeScorer._sums``
+    and ``summarize``. Returns the launch counts of the serving phases
+    (bench_serve) and of the train phase (bench_train)."""
+    from unittest import mock
+
+    import bench_torch
+    from hdenseunet_tpu_torch.infer.device_pipeline import DeviceVolumeScorer
+    from hdenseunet_tpu_torch.models import layers as L
+    from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
+
+    live, digests, launches = [], [], {}
+    sums, summarize = DeviceVolumeScorer._sums, DeviceVolumeScorer.summarize
+    measure_train = bench_torch.measure_train
+
+    def counted_sums(self, vol_d, p):  # one call a scoring
+        live.append(int(p["weights"].any(axis=1).sum()))
+        return sums(self, vol_d, p)
+
+    def kept_summarize(self, *args):
+        digests.append(summarize(self, *args))
+        return digests[-1]
+
+    def counted_train(*args):  # the serving phases are over; the train phase starts
+        launches["bench_serve"] = read_counts()
+        reset_counts()
+        try:
+            return measure_train(*args)
+        finally:
+            launches["bench_train"] = read_counts()
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    reset_counts()
+    with mock.patch.dict(os.environ, BENCH_ENV), contextlib.redirect_stdout(out), \
+            mock.patch.object(DeviceVolumeScorer, "_sums", counted_sums), \
+            mock.patch.object(DeviceVolumeScorer, "summarize", kept_summarize), \
+            mock.patch.object(bench_torch, "measure_train", counted_train):
+        status = bench_torch.main()
+    seconds = time.perf_counter() - t0
+    lines = [json.loads(s) for s in out.getvalue().splitlines() if s.startswith("{")]
+    assert status == 0 and len(lines) == 5, (status, out.getvalue()[-3000:])
+    line = lines[-1]
+    assert not [k for k in line if k.endswith("_error")], line
+    missing = [k for k in BENCH_KEYS if k not in line]
+    for reliable, unreliable in BENCH_EITHER:
+        if not all(k in line for k in unreliable):
+            missing += [k for k in reliable if k not in line]
+    assert not missing and line["card"] in card, (missing, line)
+    assert digests and all(np.isfinite(d).all() for d in digests), digests
+    if "compute_s_per_volume" in line:
+        assert line["value"] >= line["compute_s_per_volume"], line
+    unreliable = sorted(k for k in line if k.endswith("_unreliable"))
+
+    serve, train = launches["bench_serve"], launches["bench_train"]
+    bsr = sum(isinstance(m, L.Scale) for m in HDenseUNet(preset="full", device="meta").modules())
+    finishes = 1 + int(BENCH_ENV["BENCH_PIPELINE_VOLUMES"])  # the pipelined loop's warm-up and volumes
+    assert serve["window_accumulate"] == sum(live) and serve["score_finish"] == finishes, (serve, live)
+    assert serve["affine_relu"] >= bsr * sum(live), (serve, bsr, sum(live))
+    assert serve == only(**{k: serve[k] for k in ("affine_relu", "window_accumulate", "score_finish")})
+    env = {k: int(v) for k, v in BENCH_ENV.items() if k.startswith("BENCH_TRAIN")}
+    # the first step, the chained loops, and each endpoint's eager call and capture
+    steps = (1 + env["BENCH_TRAIN_REPS"] * env["BENCH_TRAIN_STEPS"]
+             + env["BENCH_TRAIN_K_SMALL"] + 1 + env["BENCH_TRAIN_K_BIG"] + 1)
+    assert train == only(wce_forward=steps, wce_backward=steps), (train, steps)
+    print(
+        f"bench: bench_torch.main under {BENCH_ENV}: exit {status}, {len(lines)} cumulative lines, "
+        f"{seconds:.1f} s; {len(live)} scorings over {sum(live)} live window batches, {len(digests)} "
+        f"digests finite; unreliable: {unreliable or 'none'}; launches bench_serve "
+        f"{ {k: v for k, v in serve.items() if v} } (K1 >= {bsr} x {sum(live)}), bench_train "
+        f"{ {k: v for k, v in train.items() if v} } ({steps} steps counted, replays not) [{card}]"
+    )
+    print(f"  bench line: {json.dumps(line)}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a card")
@@ -3168,6 +3279,7 @@ def main() -> None:
     paths.update(dp_two_ranks(card, one_steps, exact_steps, serve_ref))
     del one_steps, exact_steps, serve_ref
     paths.update(cli_train_dp(card))
+    paths.update(bench_path(card))
     kernels = []
     for name, source, replaces, numbers in (
         ("affine_relu", "fused_affine.cu", "ops/fused_affine.py:48", k1),

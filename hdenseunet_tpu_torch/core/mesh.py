@@ -48,14 +48,17 @@ class LocalMesh:
 def make_mesh(device=None, axis_name: str = DATA_AXIS):
     """1-D data-parallel mesh over every rank of the process group, or a
     :class:`LocalMesh` when this process joined none. ``device`` gives the
-    mesh's device type (default: 'cuda' under NCCL or without a group when a
-    card is present, else 'cpu')."""
+    mesh's device type (default: the group's, 'cuda' under NCCL and 'cpu'
+    under gloo; without a group 'cuda', which raises when there is no card:
+    a CPU mesh is asked for with ``device='cpu'``)."""
     if device is not None:
         device_type = torch.device(device).type
     elif dist.is_initialized():
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    elif torch.cuda.is_available():
+        device_type = "cuda"
     else:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        raise RuntimeError("make_mesh: no CUDA card; pass device='cpu' for a CPU mesh")
     if not dist.is_initialized():
         return LocalMesh(device_type, axis_name)
     from torch.distributed.device_mesh import DeviceMesh

@@ -185,6 +185,29 @@ def test_one_rank_mesh_without_process_group(no_env):
     assert H.is_primary() and (H.process_index(), H.process_count()) == (0, 1)
 
 
+def test_default_mesh_without_a_card_raises(no_env):
+    """No group, no ``device`` and no card: ``make_mesh()`` raises rather
+    than pick the CPU; in a subprocess with CUDA hidden, so the test asks
+    the same question where a card is present. ``make_mesh('cpu')`` still
+    gives the CPU mesh."""
+    code = (
+        "from hdenseunet_tpu_torch.core import mesh as M\n"
+        "m = M.make_mesh('cpu')\n"
+        "assert isinstance(m, M.LocalMesh) and m.device_type == 'cpu', m\n"
+        "try:\n"
+        "    M.make_mesh()\n"
+        "except RuntimeError as e:\n"
+        "    print(e)\n"
+        "else:\n"
+        "    raise SystemExit('make_mesh() returned a mesh without a card')\n"
+    )
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "no CUDA card; pass device='cpu'" in out.stdout
+
+
 def test_initialize_is_a_noop_without_environment(no_env):
     assert H.initialize() is False
     assert not torch.distributed.is_initialized()
