@@ -10,15 +10,17 @@ failure exits non-zero):
 2. build of the port's CUDA kernels from csrc/ (one nvcc per source);
 3. every kernel against its plain PyTorch version on the card, with its
    time, the plain version's and its bound: K1 (affine_relu) at the serving
-   shapes, K1's backward at the end2end training shapes, K2 (weighted CE)
-   forward and backward at the training stages' row counts; each wrapper
+   shapes (K5 in phase 4's k5 part), K1's backward at the end2end training
+   shapes, K2 (weighted CE) forward and backward at the training stages'
+   row counts; each wrapper
    call runs one kernel (torch.profiler); calls of other shapes queued back
    to back give the plain answers and the same bits when repeated (each
    kernel's last block resets the counter it took a ticket from);
 4. the serving path: VolumePredictor.segment on two synthetic 512x512x96 CT
    volumes, full-preset H-DenseUNet in bfloat16 with seeded random weights,
    the shipped InferConfig (its 3D branch: the space-to-depth stem in the
-   canonical layout), host CC postprocess (native/postprocess.cpp); then
+   canonical layout), host CC postprocess (native/postprocess.cpp), K1 4
+   and K5 111 launches a window batch; then
    - serve_dpp: the same volumes with ``device_postprocess`` (the CC
      postprocess on the card, K4), sparse wire on and off: labelmaps
      byte-identical to the host postprocess's, K4's launches per volume
@@ -40,7 +42,7 @@ failure exits non-zero):
      ``peak_flops_per_chip()`` (the card's bf16 data-sheet peak), beside the
      serve path's synchronised device scoring of the same run;
    - trace: one ``VolumePredictor.segment`` inside ``utils.profiling.trace``
-     (torch.profiler): the trace names K1's kernel and the predictor's
+     (torch.profiler): the trace names K1's and K5's kernels and the predictor's
      scoring, fetch and postprocess scopes; the ten device ops with the
      most time;
    - K4 (cc_label 26 and 6, largest_component, fill_holes, compose_prep,
@@ -68,6 +70,19 @@ failure exits non-zero):
      through ``segment`` with K3's plain versions (serve_plain_k3):
      labelmaps byte-identical to phase 4's, device scoring s/volume in
      turns with K3 and with its plain versions;
+   - k5 (affine_gemm, ops/affine_gemm.py; ``check_k5``): at the first and
+     last bottleneck of every stage of both branches and every transition,
+     at the served window batch's rows, K5 and its plain version against a
+     float64 product of the kernel's own operand within its stated bound;
+     ms warm and L2-flushed, the plain version's in turns, cuDNN's 1x1
+     convolution alone (library_ms), the unfused chain (K1, cuDNN, K1),
+     the bound over the bf16 peak, kernels per call; one float32 case;
+     then the served path: K1's inputs only the stems' and last blocks'
+     widths, both volumes' labelmasks on the concatenation route
+     (serve_unfused: K1 220 a window batch, no K5) and their voxels
+     differing from K5's,
+     device scoring s/volume and MFU with K5 and unfused in turns, and
+     float32 probabilities through both routes within DP_FLOAT32_GAP;
    - forms (the 3D branch's execution forms, phase 4's weights; TF32 off
      for every float32 comparison): the stem alone at the serving shape (8
      windows of 512x512x8, 4 channels, bfloat16), the direct conv against
@@ -170,14 +185,14 @@ failure exits non-zero):
    ``compute_s_per_volume``; ``*_unreliable`` keys printed, not failed on.
    bench_serve (its serving phases: headline, compute slope, attribution,
    pipelined loop) counts K3a = the plans' live batches summed over every
-   scoring, K3b = the pipelined loop's labelmasks, K1 >= a forward's
-   launches per live batch; bench_train (the 2D stage, live BN, so no K1)
+   scoring, K3b = the pipelined loop's labelmasks, K1 4 and K5 111 a
+   live batch; bench_train (the 2D stage, live BN, so no K1)
    counts K2 once a step run eagerly or captured, never a replayed one.
    The phase's wall seconds and the line are printed;
 then a JSON line describing the kernels, and the last line
 {"ok": true, "device": {...}}.
 
-Each path of phases 4-6 and 8-10 (serve, serve_dpp, serve_dpp_dense, serve_plain_k3,
+Each path of phases 4-6 and 8-10 (serve, serve_dpp, serve_dpp_dense, serve_plain_k3, serve_unfused,
 serve_per_window, serve_shared_2d, serve_uint8, serve_host_loop, serve_tiled,
 mfu, trace, forms_* (one branch forward or one scoring a form), forms_score_*,
 forms_train_end2end, train_*, train_end2end_convs, train_graph_*, cli_*, cli_test_tiled, parity,
@@ -230,9 +245,11 @@ MODEL_TOL = 1e-4
 # the convs' memory format differ by 2.1 % of a tensor's norm
 # (tests/test_torch_train_hybrid.py), and cuDNN sums in yet another order
 TRAIN_UPDATE_RTOL = 5e-2
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor fp32 FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor fp32 FLOP/s and
+# the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989.4e12
 TRAIN_STEPS = 4
 # steps_per_dispatch of the graph phase and its run: the first group runs
 # eagerly (the warm-up), the second replays one captured step
@@ -247,6 +264,11 @@ K12_NAMES = ("affine_relu", "affine_relu_backward", "wce_forward", "wce_backward
 K4_NAMES = ("cc_label", "largest_component", "fill_holes", "compose_prep", "compose_finish")
 K4_SHAPE = (512, 512, 112)  # LiTS in-plane size, 112 slices
 K3_NAMES = ("window_accumulate", "score_finish")
+# The served window batch's K5 shapes: 36 stacks of 512x512 through the 2D
+# branch (stages at 128^2 to 16^2) and 8 windows of 512x512x8 through the 3D
+# one (128^2x2 to 16^2x2); the first and last bottleneck of every stage and
+# every transition, as (label, rows, K, row stride, N, epilogue, ndim)
+K5_STACKS, K5_WINDOWS = 36, 8
 # K3's operations, for its bound: per voxel and window, for each of the 3
 # classes a subtract, an exp, a divide and a fused multiply-add (2), then 2
 # max and 2 adds across the classes (K3a); per voxel an add, 2 divides and
@@ -411,10 +433,11 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def counters() -> dict:
-    from hdenseunet_tpu_torch.ops import cc, fused_affine as K, score as S, wce as W
+    from hdenseunet_tpu_torch.ops import affine_gemm as K5, cc, fused_affine as K, score as S, wce as W
 
     return {
         "affine_relu": K.affine_relu, "affine_relu_backward": K.affine_relu_backward,
+        "affine_gemm": K5.affine_gemm,
         "wce_forward": W.wce_forward, "wce_backward": W.wce_backward,
         **{name: getattr(cc, name) for name in K4_NAMES},
         **{name: getattr(S, name) for name in K3_NAMES},
@@ -424,6 +447,25 @@ def counters() -> dict:
 def only(**counts) -> dict:
     """Launch counts with every kernel not named at 0."""
     return {**dict.fromkeys(counters(), 0), **counts}
+
+
+def route_counts(model) -> dict:
+    """K1 and K5 launches of one inference forward of ``model`` (a branch,
+    the hybrid, the legacy 2D): one K5 launch for every bottleneck, its x2
+    BN∘Scale∘ReLU inside, and every transition; K1 for every other frozen
+    BN∘Scale∘ReLU (the stems' and the last blocks')."""
+    from hdenseunet_tpu_torch.models import layers as L
+
+    convs = [name for name, m in model.named_modules() if isinstance(m, L.Conv)]
+    x1 = sum(name.endswith("_x1") for name in convs)
+    blk = sum(name.endswith("_blk") for name in convs)
+    scales = sum(isinstance(m, L.Scale) for m in model.modules())
+    return dict(affine_relu=scales - 2 * x1 - blk, affine_gemm=x1 + blk)
+
+
+def scaled(counts: dict, n: int) -> dict:
+    """Launch counts of n forwards."""
+    return {k: v * n for k, v in counts.items()}
 
 
 def reset_counts() -> None:
@@ -795,13 +837,13 @@ def serve_path(card: str) -> dict:
     from hdenseunet_tpu_torch.core.initializers import init_model
     from hdenseunet_tpu_torch.infer import postprocess
     from hdenseunet_tpu_torch.infer.predictor import VolumePredictor
-    from hdenseunet_tpu_torch.models import layers as L
     from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
 
     cfg = Config()
     cfg.model.compute_dtype = "bfloat16"
     model = init_model(HDenseUNet(preset=cfg.model.preset, device="cuda"), SEED)
-    bsr_per_forward = sum(isinstance(m, L.Scale) for m in model.modules())
+    per_batch = route_counts(model)
+    assert per_batch == dict(affine_relu=4, affine_gemm=111), per_batch
     predictor = VolumePredictor(model, cfg, arch="end2end", device="cuda")
     cases = [synthetic_case(SEED + i) for i in range(2)]
     runs = 0
@@ -830,8 +872,8 @@ def serve_path(card: str) -> dict:
         torch.cuda.synchronize()
         scoring.append(time.perf_counter() - t0)
 
-    assert launches["affine_relu"] >= bsr_per_forward * runs, (launches, bsr_per_forward, runs)
-    assert launches["window_accumulate"] == runs and launches["score_finish"] == len(cases), launches
+    assert launches == only(**scaled(per_batch, runs), window_accumulate=runs,
+                            score_finish=len(cases)), (launches, per_batch, runs)
     for (vol, _), lab in zip(cases, labelmaps):
         assert lab.dtype == np.uint8 and lab.shape == vol.shape, (lab.dtype, lab.shape)
         assert set(np.unique(lab).tolist()) <= {0, 1, 2}, np.unique(lab)
@@ -847,12 +889,12 @@ def serve_path(card: str) -> dict:
         f"serve path: 2 volumes {VOLUME_SHAPE} full preset bf16, {runs} window runs, "
         f"s/volume {[round(s, 3) for s in seconds]}, device scoring s/volume {[round(s, 4) for s in scoring]}, "
         f"peak {peak / 2**30:.2f} GiB, "
-        f"launches {launches} (K1 >= {bsr_per_forward} x {runs}), "
+        f"launches {launches} (K1 {per_batch['affine_relu']} and K5 {per_batch['affine_gemm']} x {runs}), "
         f"label counts {counts}, host postprocess {host_pp} [{card}]"
     )
     return dict(launches=launches, model=model, predictor=predictor, cases=cases, labelmaps=labelmaps,
                 probs=probs.cpu(), seconds=seconds, scoring=scoring, peak=peak, runs=runs // len(cases),
-                k1_floor=bsr_per_forward * runs, bsr_per_forward=bsr_per_forward)
+                per_batch=per_batch)
 
 
 def mfu_path(card: str, serve: dict) -> dict:
@@ -873,7 +915,7 @@ def mfu_path(card: str, serve: dict) -> dict:
     d = sc.compute_seconds(np.asarray(vol, np.float32) - icfg.mean, z_lo, z_hi, detail=True)
     launches = read_counts()
     # both phase 4 volumes share one plan, so each scoring runs half its K1 launches
-    assert launches == only(affine_relu=12 * serve["launches"]["affine_relu"] // 2,
+    assert launches == only(**scaled(serve["per_batch"], 12 * serve["runs"]),
                             window_accumulate=12 * serve["runs"]), launches
     mfu = flops / d["seconds"] / peak
     assert 0.0 < mfu < 1.0, mfu
@@ -892,10 +934,10 @@ def mfu_path(card: str, serve: dict) -> dict:
 def trace_path(card: str, serve: dict) -> dict:
     """One ``VolumePredictor.segment`` of phase 4's first volume inside
     ``utils.profiling.trace``: its labelmap as phase 4's, a trace file that
-    names K1's kernel and the predictor's scoring, fetch and postprocess
+    names K1's and K5's kernels and the predictor's scoring, fetch and postprocess
     scopes; the device time of the convolution kernels (their rate of
-    estimate_flops), of K1 and of the rest, and the ten device ops with the
-    most time. Returns the launch counts."""
+    estimate_flops), of K5, of K1, of cat and copies and of the rest, and the
+    ten device ops with the most time. Returns the launch counts."""
     from hdenseunet_tpu_torch.infer import postprocess
     from hdenseunet_tpu_torch.utils.flops import peak_flops_per_chip
     from hdenseunet_tpu_torch.utils.profiling import trace
@@ -913,9 +955,10 @@ def trace_path(card: str, serve: dict) -> dict:
         assert len(files) == 1, files
         text = files[0].read_text()
     assert np.array_equal(lab, serve["labelmaps"][0]), "the traced segment differs from phase 4's"
-    assert launches == only(affine_relu=serve["launches"]["affine_relu"] // 2,
+    assert launches == only(**scaled(serve["per_batch"], serve["runs"]),
                             window_accumulate=serve["runs"], score_finish=1), launches
-    missing = [n for n in [f'"{scope}"' for scope in SCOPES] + ["affine_relu"] if n not in text]
+    missing = [n for n in [f'"{scope}"' for scope in SCOPES] + ["affine_relu", "affine_gemm"]
+               if n not in text]
     assert not missing, f"the trace names none of {missing}"
     by_op, spans = {}, {}
     for e in prof.events():
@@ -926,18 +969,24 @@ def trace_path(card: str, serve: dict) -> dict:
             table[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     busy = sum(ms for _, ms in by_op.values())
     assert busy > 0, "the profiler saw no device time"
-    conv_ms = sum(ms for name, (_, ms) in by_op.items() if CONV_KERNEL.search(name))
+    k5_ms = sum(ms for name, (_, ms) in by_op.items() if "affine_gemm" in name)
+    conv_ms = sum(ms for name, (_, ms) in by_op.items()
+                  if CONV_KERNEL.search(name) and "affine_gemm" not in name)
     k1_ms = sum(ms for name, (_, ms) in by_op.items() if "affine_relu" in name)
+    cat_ms = sum(ms for name, (_, ms) in by_op.items() if "CatArray" in name)
+    copy_ms = sum(ms for name, (_, ms) in by_op.items() if "copy" in name.lower())
     _, z_lo, z_hi = postprocess.liver_mask_extent(ext)
-    conv_rate = serve["predictor"].windows.estimate_flops(vol.shape, z_lo, z_hi) / (conv_ms / 1e3)
+    # estimate_flops counts every convolution, the 1x1s that K5 runs too
+    conv_rate = serve["predictor"].windows.estimate_flops(vol.shape, z_lo, z_hi) / ((conv_ms + k5_ms) / 1e3)
     print(f"trace: one segment of {vol.shape}, traced wall {wall:.3f} s against phase 4's "
           f"{[round(s, 3) for s in serve['seconds']]} untraced, {len(text) / 2**20:.1f} MiB of trace, "
           f"{sum(n for n, _ in by_op.values())} device events, device busy {busy:.1f} ms; scopes on the "
-          f"device timeline {dict((k, round(ms, 2)) for k, (_, ms) in spans.items())} ms; convolution "
-          f"kernels {conv_ms:.1f} ms ({100 * conv_ms / busy:.1f} %) at {conv_rate / 1e12:.1f} TFLOP/s of "
-          f"estimate_flops, {100 * conv_rate / peak_flops_per_chip():.2f} % of the bf16 peak; K1 "
-          f"{k1_ms:.1f} ms ({100 * k1_ms / busy:.1f} %), the rest "
-          f"{busy - conv_ms - k1_ms:.1f} ms; the ten device ops with the most time [{card}]:")
+          f"device timeline {dict((k, round(ms, 2)) for k, (_, ms) in spans.items())} ms; cuDNN's "
+          f"convolution kernels {conv_ms:.1f} ms ({100 * conv_ms / busy:.1f} %), K5 {k5_ms:.2f} ms "
+          f"({100 * k5_ms / busy:.1f} %), together at {conv_rate / 1e12:.1f} TFLOP/s of estimate_flops, "
+          f"{100 * conv_rate / peak_flops_per_chip():.2f} % of the bf16 peak; K1 {k1_ms:.2f} ms "
+          f"({100 * k1_ms / busy:.1f} %); cat {cat_ms:.2f} ms; copies {copy_ms:.2f} ms; the rest "
+          f"{busy - conv_ms - k5_ms - k1_ms:.1f} ms; the ten device ops with the most time [{card}]:")
     for name, (n, ms) in sorted(by_op.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"  {ms:9.2f} ms {100 * ms / busy:5.1f} % x{n:<5d} {name[:110]}")
     return launches
@@ -952,7 +1001,7 @@ def exit_code(main, argv: list[str]) -> int:
     raise AssertionError(f"{argv[0]} returned without an exit code")
 
 
-def parity_path(card: str, bsr_per_forward: int) -> dict:
+def parity_path(card: str, per_batch: dict) -> dict:
     """``python -m hdenseunet_tpu_torch.weights.parity`` at full width: the
     2D model at 224x224 and the end2end hybrid at 224x224x8, from seeded
     weights written as an .npz, dumped in float32 on the card and on the
@@ -987,35 +1036,55 @@ def parity_path(card: str, bsr_per_forward: int) -> dict:
                   f"at the tool's defaults (rtol = atol = 1e-3): exit 0; dump s card {seconds[0]:.2f}, "
                   f"CPU {seconds[1]:.2f} [{card}]")
         launches = read_counts()
-    assert launches == only(affine_relu=BSR_2D + bsr_per_forward), launches
+    from hdenseunet_tpu_torch.models.denseunet2d import DenseUNet2D
+
+    per_2d = route_counts(DenseUNet2D(device="meta"))
+    assert launches == only(**{k: per_2d[k] + per_batch[k] for k in per_batch}), launches
     return launches
 
 
 @contextlib.contextmanager
-def plain_k1():
-    """Every frozen BN∘Scale∘ReLU of the models through K1's plain version
-    for the block, on the card too: the yardstick a forward through K1 is
-    held to. The plain version counts no launch."""
+def plain_k1_k5():
+    """Every frozen BN∘Scale∘ReLU of the models through K1's and K5's plain
+    versions for the block, on the card too: the yardstick a forward through
+    K1 and K5 is held to. The plain versions count no launch."""
     import types
 
     from hdenseunet_tpu_torch.models import layers as L
+    from hdenseunet_tpu_torch.ops.affine_gemm import affine_gemm_reference
     from hdenseunet_tpu_torch.ops.fused_affine import affine_relu_reference
 
-    saved = L.AffineReLU
+    saved = L.AffineReLU, L.K5
     L.AffineReLU = types.SimpleNamespace(
         apply=lambda x, a, b, relu: affine_relu_reference(x, a, b, relu=relu))
+    L.K5 = types.SimpleNamespace(affine_gemm=affine_gemm_reference)
     try:
         yield
     finally:
-        L.AffineReLU = saved
+        L.AffineReLU, L.K5 = saved
 
 
-def with_plain_k1(fn):
-    """fn run under :func:`plain_k1`."""
+def with_plain_k1_k5(fn):
+    """fn run under :func:`plain_k1_k5`."""
     def run():
-        with plain_k1():
+        with plain_k1_k5():
             return fn()
     return run
+
+
+@contextlib.contextmanager
+def unfused():
+    """Every dense block of the models through the concatenation route for
+    the block, at inference too: each bottleneck and transition K1, then
+    cuDNN's 1x1 convolution, then K1, the route K5 replaced."""
+    from hdenseunet_tpu_torch.models import layers as L
+
+    saved = L.fused_1x1
+    L.fused_1x1 = lambda ctx: False
+    try:
+        yield
+    finally:
+        L.fused_1x1 = saved
 
 
 @contextlib.contextmanager
@@ -1186,7 +1255,7 @@ def check_k3(card: str, serve: dict) -> dict:
         labelmaps = [predictor.segment(v, e) for v, e in serve["cases"]]
     launches = read_counts()
     assert launches["window_accumulate"] == 0 and launches["score_finish"] == 0, launches
-    assert launches["affine_relu"] == serve["launches"]["affine_relu"], launches
+    assert all(launches[k] == serve["launches"][k] for k in ("affine_relu", "affine_gemm")), launches
     for got, want in zip(labelmaps, serve["labelmaps"]):
         assert np.array_equal(got, want), "serve_plain_k3: the labelmap differs from phase 4's"
     scoring = {"k3": [], "plain": []}
@@ -1205,6 +1274,202 @@ def check_k3(card: str, serve: dict) -> dict:
           f"{[round(v, 4) for v in scoring['k3']]}, plain {[round(v, 4) for v in scoring['plain']]} "
           f"(volume 1 then 2, two each) [{card}]")
     return dict(numbers=out, launches=launches, scoring=scoring)
+
+
+def k5_shapes() -> list:
+    """K5's calls in one served window batch at the full preset, the first
+    and last bottleneck of every stage and every transition: (label, rows,
+    K, row stride, N, epilogue, ndim). A bottleneck reads the first K
+    channels of its block's buffer, whose width is the row stride."""
+    from hdenseunet_tpu_torch.models import denseunet2d as D2, denseunet3d as D3
+
+    shapes = []
+    for branch, net, rows, ndim in (("2d", D2, K5_STACKS * 128 * 128, 4),
+                                    ("3d", D3, K5_WINDOWS * 128 * 128 * 2, 5)):
+        c, g = net.INITIAL_FILTERS, net.GROWTH_RATE
+        for i, nb in enumerate(net.ENC_BLOCKS):
+            width = c + nb * g
+            shapes.append((f"{branch} stage {i + 2} first", rows, c, width, 4 * g, True, ndim))
+            shapes.append((f"{branch} stage {i + 2} last", rows, width - g, width, 4 * g, True, ndim))
+            if i < len(net.ENC_BLOCKS) - 1:
+                shapes.append((f"{branch} transition {i + 2}", rows, width, width, width // 2, False, ndim))
+                c, rows = width // 2, rows // 4
+    return shapes
+
+
+def k5_case(rows: int, k: int, ld: int, n: int, epi: bool, ndim: int, dtype, gen):
+    """Seeded K5 inputs: x the first k channels of a (rows, ld) buffer seen
+    as (1, k, rows, 1[, 1]), w (n, k), the folded pairs."""
+    buf = (2 * torch.randn(rows, ld, device="cuda", generator=gen)).to(dtype)
+    x = buf[:, :k].view(1, rows, *[1] * (ndim - 3), k).movedim(-1, 1)
+    w = (torch.randn(n, k, device="cuda", generator=gen) * k**-0.5).to(dtype)
+    pairs = [(1 + 0.5 * torch.randn(c, device="cuda", generator=gen),
+              0.5 * torch.randn(c, device="cuda", generator=gen)) for c in (k, n)]
+    return x, w, (*pairs[0], *(pairs[1] if epi else ()))
+
+
+def k5_errors(x, w, args, got, plain, label: str) -> tuple[float, float]:
+    """Hold K5's result and its plain version's to the float64 chain
+    (``affine_gemm.float64_reference``): the kernel within its bound, the
+    plain version within its own (its prologue rounds twice), so the two
+    within the sum. Returns (largest error against the plain version,
+    largest against float64)."""
+    from hdenseunet_tpu_torch.ops import affine_gemm as K5
+
+    rows, n = x.numel() // x.shape[1], w.shape[0]
+    as_rows = lambda t: t.movedim(1, -1).reshape(rows, n).double()  # noqa: E731
+    want, tol = K5.float64_reference(x, w, *args)
+    err = (as_rows(got) - want).abs()
+    assert bool((err <= tol).all()), f"K5 disagrees with float64 at {label}: max {float(err.max())}"
+    worst64 = float(err.max())
+    if plain is None:
+        return 0.0, worst64
+    _, tol_plain = K5.float64_reference(x, w, *args, fused=False)
+    err = (as_rows(plain) - want).abs()
+    assert bool((err <= tol_plain).all()), f"K5's plain version at {label}: max {float(err.max())}"
+    err = (as_rows(got) - as_rows(plain)).abs()
+    assert bool((err <= tol + tol_plain).all()), f"K5 disagrees with its plain version at {label}"
+    return float(err.max()), worst64
+
+
+def check_k5(card: str, serve: dict) -> dict:
+    """K5 (affine_gemm, ops/affine_gemm.py) on the card, then the served
+    path through it against the concatenation route it replaced.
+
+    At every shape of :func:`k5_shapes`, bfloat16 (and one float32 case):
+    the kernel and its plain version against the float64 chain
+    (:func:`k5_errors`); ms warm and L2-flushed, the plain version's in
+    turns, ``library_ms`` (cuDNN's 1x1 convolution alone on the prologue's
+    output, the one PyTorch call for the product, which the port never
+    makes), the unfused chain's (K1, cuDNN, K1 on the concatenation), the
+    bound (the larger of (MK + NK + MN) 2 bytes over 3.35 TB/s and 2MNK over
+    the bf16 peak), kernels per call. Then phase 4's first volume scored once
+    with every K1 input's channels recorded: only the stems' and the last
+    blocks' widths, none between a bottleneck and its 3x3 (an x2
+    BN∘Scale∘ReLU would show 192 or 128); both volumes' labelmasks through
+    K5 and on the concatenation route (serve_unfused: K1 220 a window
+    batch, no K5), the voxels that differ; device scoring s/volume and MFU
+    with K5 and unfused, in turns; phase 4's model and first volume in
+    float32 (TF32 off, :func:`serve_float32`) through both routes, the
+    largest probability gap held to DP_FLOAT32_GAP. Returns the JSON
+    numbers, serve_unfused's launch counts, the scoring times and the
+    float32 run through K5 (phase 9's reference)."""
+    import types
+
+    import torch.nn.functional as F
+
+    from hdenseunet_tpu_torch.infer import postprocess
+    from hdenseunet_tpu_torch.models import layers as L
+    from hdenseunet_tpu_torch.ops import affine_gemm as K5, fused_affine as K
+    from hdenseunet_tpu_torch.utils.flops import peak_flops_per_chip
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    shapes = k5_shapes()
+    numbers, worst = None, 0.0
+    for label, rows, k, ld, n, epi, ndim in shapes:
+        x, w, args = k5_case(rows, k, ld, n, epi, ndim, torch.bfloat16, gen)
+        got, plain = K5.affine_gemm(x, w, *args), K5.affine_gemm_reference(x, w, *args)
+        torch.cuda.synchronize()
+        err, err64 = k5_errors(x, w, args, got, plain, label)
+        worst = max(worst, err)
+        del got, plain
+        kernel = lambda: K5.affine_gemm(x, w, *args)  # noqa: E731
+        ms, plain_ms = in_turns(kernel, lambda: K5.affine_gemm_reference(x, w, *args))
+        xc = L.channels_last(x)  # the concatenation the unfused route reads
+        conv = F.conv2d if ndim == 4 else F.conv3d
+        wc = w.view(n, k, *[1] * (ndim - 2))
+        h = K.affine_relu(xc, args[0], args[1])
+
+        def chain():
+            y = conv(K.affine_relu(xc, args[0], args[1]), wc)
+            return K.affine_relu(y, args[2], args[3]) if epi else y
+
+        library_ms, chain_ms = cuda_ms(lambda: conv(h, wc)), cuda_ms(chain)
+        flushed = cold_ms(kernel)
+        t_bytes = (rows * k + n * k + rows * n) * 2 / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * rows * n * k / BF16_OPS_PER_S * 1e3
+        b = dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+        print(f"K5 {label}: rows {rows}, K {k} of {ld}, N {n}, epilogue {epi}: max_abs_err {err:.3g} "
+              f"against the plain version ({err64:.3g} against float64), kernel {ms:.4f} ms, L2 flushed "
+              f"{flushed:.4f}, plain {plain_ms:.4f} (in turns), library (cuDNN 1x1 alone) "
+              f"{library_ms:.4f}, unfused chain (K1, cuDNN, K1) {chain_ms:.4f}, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {100 * b['bound_ms'] / ms:.1f} % of it "
+              f"[{card}]")
+        if label == "2d stage 2 last":
+            numbers = dict(ms=ms, plain_ms=plain_ms, cold_ms=flushed, library_ms=library_ms,
+                           chain_ms=chain_ms, **b, kernels_per_call=kernels_per_call(kernel),
+                           shape=f"{label}: rows {rows}, K {k} of {ld}, N {n}")
+        del x, w, args, xc, h
+    # float32 (the audit paths' dtype) at 2D stage 5's last bottleneck
+    label, rows, k, ld, n, epi, ndim = next(sh for sh in shapes if sh[0] == "2d stage 5 last")
+    x, w, args = k5_case(rows, k, ld, n, epi, ndim, torch.float32, gen)
+    _, err64 = k5_errors(x, w, args, K5.affine_gemm(x, w, *args), None, f"{label} float32")
+    ms = cuda_ms(lambda: K5.affine_gemm(x, w, *args))
+    print(f"K5 {label} float32: rows {rows}, K {k} of {ld}, N {n}: {err64:.3g} against float64, "
+          f"kernel {ms:.4f} ms [{card}]")
+    numbers["max_abs_err"] = worst
+    del x, w, args
+
+    # the served path: K1's inputs, then the concatenation route
+    predictor = serve["predictor"]
+    sc, icfg = predictor.windows, predictor.cfg.infer
+    vol, ext = serve["cases"][0]
+    _, z_lo, z_hi = postprocess.liver_mask_extent(ext)
+    img = np.asarray(vol, np.float32) - icfg.mean
+    widths, saved = Counter(), L.AffineReLU
+    m2, m3 = predictor.windows.model.net2d, predictor.windows.model.net3d
+    want = Counter(int(layer.gamma.shape[0]) for layer in (
+        m2["conv1_scale"], m2[f"conv{len(m2.blocks) + 1}_blk_scale"],
+        m3["3dconv1_scale"], m3[f"3dconv{len(m3.blocks) + 1}_blk_scale"]))
+    L.AffineReLU = types.SimpleNamespace(
+        apply=lambda x_, *a: widths.update([int(x_.shape[1])]) or saved.apply(x_, *a))
+    try:
+        sc.labelmask(img, z_lo, z_hi)
+    finally:
+        L.AffineReLU = saved
+    assert widths == Counter({c: n * serve["runs"] for c, n in want.items()}), (widths, want)
+    masks = {}
+    for way in ("k5", "unfused"):
+        reset_counts()
+        with unfused() if way == "unfused" else contextlib.nullcontext():
+            masks[way] = [sc.labelmask(np.asarray(v, np.float32) - icfg.mean,
+                                       *postprocess.liver_mask_extent(e)[1:]) for v, e in serve["cases"]]
+        launches = read_counts()
+    runs = serve["runs"] * len(serve["cases"])
+    k1_unfused = sum(isinstance(m, L.Scale) for m in predictor.windows.model.modules())
+    assert launches == only(affine_relu=k1_unfused * runs, window_accumulate=runs,
+                            score_finish=len(serve["cases"])), launches
+    differ = [int((a != b).sum()) for a, b in zip(masks["k5"], masks["unfused"])]
+    scoring = {"k5": [], "unfused": []}
+    flops = []
+    for v, e in serve["cases"]:
+        _, lo_z, hi_z = postprocess.liver_mask_extent(e)
+        v_img = np.asarray(v, np.float32) - icfg.mean
+        flops.append(sc.estimate_flops(v.shape, lo_z, hi_z))
+        for way in ("k5", "unfused", "unfused", "k5"):  # in turns
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with unfused() if way == "unfused" else contextlib.nullcontext():
+                sc.labelmask_async(v_img, lo_z, hi_z)
+                torch.cuda.synchronize()
+            scoring[way].append(time.perf_counter() - t1)
+    peak = peak_flops_per_chip()
+    mfu = {way: [round(100 * flops[i // 2] / s / peak, 2) for i, s in enumerate(t)] for way, t in scoring.items()}
+    float32 = serve_float32()
+    with unfused():
+        float32_unfused = serve_float32(labelmap=False)
+    gap = float((float32["probs"] - float32_unfused["probs"]).abs().max())
+    print(f"K5 served path: K1's inputs in one scoring of {vol.shape}: {dict(widths)} channels (the stems' "
+          f"and last blocks', {serve['runs']} window batches), none between a bottleneck and its 3x3; "
+          f"serve_unfused (K1, cuDNN, K1 and cat; the scorer's labelmasks): launches {launches}, bf16 "
+          f"labelmask voxels differing from K5's {differ} of {vol.size}; device scoring s/volume in turns, K5 "
+          f"{[round(v, 4) for v in scoring['k5']]}, unfused {[round(v, 4) for v in scoring['unfused']]} "
+          f"(volume 1 then 2, two each), MFU % K5 {mfu['k5']}, unfused {mfu['unfused']}; float32 (TF32 "
+          f"off) probabilities' largest gap {gap:.3g} (bound {DP_FLOAT32_GAP:.3g}) [{card}]")
+    assert gap <= DP_FLOAT32_GAP, gap
+    print(f"k5 phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return dict(numbers=numbers, launches=launches, scoring=scoring, float32=float32)
 
 
 def timed_steps(step, steps: int = 2) -> tuple[list[float], float]:
@@ -1226,9 +1491,10 @@ def variants_path(card: str) -> dict:
     """The models the serving and training paths do not run, at full width:
     - the legacy DenseUNet-167 (``DenseUNet2D(skip_connections=True)``,
       'line0' and the encoder's skip adds), seeded weights, in serving form
-      (``prepare_serving``: bfloat16 convs, BN∘Scale folded, K1): batch 8 of
-      224x224 and batch 1 of 512x512, each held to the same forward through
-      K1's plain version on the card (relative L2 of the logits within
+      (``prepare_serving``: bfloat16 convs, BN∘Scale folded, K1 and K5):
+      batch 8 of 224x224 and batch 1 of 512x512, each held to the same
+      forward through K1's and K5's plain versions on the card (relative L2
+      of the logits within
       VARIANT_BF16_RTOL); then training-mode steps, live BN, decoder
       dropout 0.3, remat, the 2D stage's weighted CE (K2 both ways), batch 8
       of 224x224 in bfloat16: ms, peak memory;
@@ -1260,23 +1526,24 @@ def variants_path(card: str) -> dict:
         for shape, x in inputs.items():
             flops = conv_flops(DenseUNet2D(skip_connections=True, device="meta"), shape)
             forward = lambda: serving(x)  # noqa: E731
-            kernel_ms, plain_ms = in_turns(forward, with_plain_k1(forward))
+            kernel_ms, plain_ms = in_turns(forward, with_plain_k1_k5(forward))
             torch.cuda.reset_peak_memory_stats()
             got = serving(x)[1].float()
             peak = torch.cuda.max_memory_allocated() / 2**30
-            want = with_plain_k1(forward)()[1].float()
+            want = with_plain_k1_k5(forward)()[1].float()
             rel = float((got - want).norm() / want.norm())
             assert bool(torch.isfinite(got).all()) and rel <= VARIANT_BF16_RTOL, (shape, rel)
             print(f"variants: legacy DenseUNet-167 serving bf16 {shape}: {kernel_ms:.3f} ms a forward "
-                  f"(plain K1 {plain_ms:.3f}), {flops / 1e12:.4f} TFLOP ({flops / kernel_ms / 1e9:.1f} "
-                  f"TFLOP/s), peak {peak:.2f} GiB; logits against the plain-K1 forward: relative L2 "
+                  f"(plain K1 and K5 {plain_ms:.3f}), {flops / 1e12:.4f} TFLOP ({flops / kernel_ms / 1e9:.1f} "
+                  f"TFLOP/s), peak {peak:.2f} GiB; logits against the plain-K1-K5 forward: relative L2 "
                   f"{rel:.3g}, max abs {float((got - want).abs().max()):.3g} [{card}]")
         reset_counts()
         for x in inputs.values():
             serving(x)
         torch.cuda.synchronize()
         launches = paths["variants_legacy_serve"] = read_counts()
-    assert launches == only(affine_relu=2 * BSR_2D), launches
+    per_legacy = route_counts(legacy)
+    assert launches == only(**scaled(per_legacy, 2)), launches
     del serving
 
     image = torch.from_numpy(rng.normal(0, 60, (8, 224, 224, 3)).astype(np.float32)).cuda().to(torch.bfloat16)
@@ -1349,7 +1616,7 @@ def variants_path(card: str) -> dict:
             print(f"variants: {name} {x_shape} float32 through the parity tool, card against CPU at "
                   f"its defaults (rtol = atol = 1e-3): exit 0 [{card}]")
         launches = paths["variants_parity"] = read_counts()
-    assert launches == only(affine_relu=BSR_2D), launches
+    assert launches == only(**per_legacy), launches
     return paths
 
 
@@ -1599,7 +1866,7 @@ def serve_dpp_path(card: str, serve: dict) -> dict:
             assert np.array_equal(got, want), f"{path}: the labelmap differs from the host postprocess's"
         vols = len(serve["cases"])
         assert all(launches[k] == n * vols for k, n in K4_PER_VOLUME.items()), launches
-        assert launches["affine_relu"] >= serve["k1_floor"], launches
+        assert all(launches[k] == serve["launches"][k] for k in ("affine_relu", "affine_gemm")), launches
         assert launches["window_accumulate"] == serve["runs"] * vols and launches["score_finish"] == vols, launches
         # the compose's buffers: 3 bool masks, int32 labels and sizes, outputs
         n = 512 * 512 * 128
@@ -1634,15 +1901,14 @@ def serve_modes(card: str, serve: dict) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        seconds = []
-        for _ in range(2):  # the first pays the new shapes' first calls
-            t0 = time.perf_counter()
-            lab = predictor.segment(vol, ext)
-            seconds.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        lab = predictor.segment(vol, ext)  # with the new shapes' first calls
+        seconds = [time.perf_counter() - t0]
         launches = paths[path] = read_counts()
-        assert launches["affine_relu"] > 0 and all(launches[k] == 0 for k in K4_NAMES), launches
+        assert launches["affine_relu"] > 0 and launches["affine_gemm"] > 0, launches
+        assert all(launches[k] == 0 for k in K4_NAMES), launches
         live = int(predictor.windows.plan(vol.shape, z_lo, z_hi)["weights"].any(axis=1).sum())
-        assert launches["window_accumulate"] == 2 * live and launches["score_finish"] == 2, (launches, live)
+        assert launches["window_accumulate"] == live and launches["score_finish"] == 1, (launches, live)
         probs = predictor.windows.score(vol - cfg.infer.mean, z_lo, z_hi)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1698,7 +1964,7 @@ def serve_host_loop(card: str, serve: dict) -> dict:
         split.append((t1 - t0, seconds[-1] - (t1 - t0)))
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    assert launches == only(affine_relu=2 * n_batches * serve["bsr_per_forward"]), (launches, n_batches)
+    assert launches == only(**scaled(serve["per_batch"], 2 * n_batches)), (launches, n_batches)
     cfg_w = Config()
     cfg_w.model.compute_dtype = "bfloat16"
     cfg_w.infer = dataclasses.replace(cfg_w.infer, dedup_2d=False, stem_s2d=False)
@@ -1753,7 +2019,7 @@ def serve_tiled(card: str, serve: dict) -> dict:
         lab = predictor.segment(vol, ext)
         seconds.append(time.perf_counter() - t0)
     launches = read_counts()
-    assert launches == only(affine_relu=2 * batches * serve["bsr_per_forward"]), (launches, batches)
+    assert launches == only(**scaled(serve["per_batch"], 2 * batches)), (launches, batches)
     assert lab.shape == vol.shape and set(np.unique(lab).tolist()) <= {0, 1, 2}
     scorer = predictor.scorer
     plan = scorer.plan(vol.shape)
@@ -1827,18 +2093,16 @@ def forms_branch(card: str, model, model32) -> dict:
     """The 3D branch and the HFF head (``HDenseUNet.fuse``) on one window
     batch at the serving shape in each of FORMS: ms (CUDA events around 3
     calls, warm, in turns), peak memory of one forward beyond what was
-    allocated before it, K1 launches of one forward (the 3D branch's frozen
-    BN∘Scale∘ReLU), the bfloat16 logits' largest difference from hwdc's
+    allocated before it, K1 and K5 launches of one forward (the 3D branch's
+    frozen BN∘Scale∘ReLU), the bfloat16 logits' largest difference from hwdc's
     and in float32 (TF32 off) within FORMS_LOGIT_RTOL of hwdc's largest.
     Returns the launch counts per form."""
-    from hdenseunet_tpu_torch.models import layers as L
-
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     shape = (WINDOW_BATCH,) + FORMS_WINDOW
     vol = 50 * torch.randn(shape + (1,), device="cuda", generator=gen)
     res2d = torch.randn(shape + (3,), device="cuda", generator=gen)
     fea2d = torch.randn(shape + (model.head["fianl_conv"].kernel.shape[1],), device="cuda", generator=gen)
-    bsr3d = sum(isinstance(m, L.Scale) for m in model.net3d.modules())
+    per_3d = route_counts(model.net3d)
     paths, peaks, logits = {}, {}, {torch.bfloat16: {}, torch.float32: {}}
     inputs = [t.to(torch.bfloat16) for t in (vol, res2d, fea2d)]
     fns = {name: (lambda kw=kw: model.fuse(*inputs, **kw)) for name, kw in FORMS.items()}
@@ -1852,7 +2116,7 @@ def forms_branch(card: str, model, model32) -> dict:
             torch.cuda.synchronize()
             paths[f"forms_{name}"] = read_counts()
             peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
-            assert paths[f"forms_{name}"] == only(affine_relu=bsr3d), (name, paths[f"forms_{name}"])
+            assert paths[f"forms_{name}"] == only(**per_3d), (name, paths[f"forms_{name}"])
         times = {name: [] for name in FORMS}
         for name in list(FORMS) + list(FORMS)[::-1]:  # in turns
             times[name].append(cuda_ms(fns[name], iters=3, warmup=1))
@@ -1867,7 +2131,8 @@ def forms_branch(card: str, model, model32) -> dict:
         ms = sum(times[name]) / len(times[name])
         print(f"forms branch {name}: 3D branch + HFF head on {shape} bf16, {ms:.2f} ms "
               f"({[round(v, 2) for v in times[name]]}), peak {peaks[name]:.2f} GiB beyond the inputs, "
-              f"K1 launches {paths[f'forms_{name}']['affine_relu']} a forward; logits' largest "
+              f"K1 and K5 launches {paths[f'forms_{name}']['affine_relu']} and "
+              f"{paths[f'forms_{name}']['affine_gemm']} a forward; logits' largest "
               f"difference from hwdc: bf16 {err[torch.bfloat16].get(name, 0.0):.4g}, float32 "
               f"{err[torch.float32].get(name, 0.0):.3g} (logits up to {scale:.3g}) [{card}]")
     return paths
@@ -1900,7 +2165,7 @@ def forms_scoring(card: str, serve: dict) -> dict:
         labels[name] = scorers[name].labelmask(img, z_lo, z_hi)
         paths[f"forms_score_{name}"] = read_counts()
         assert paths[f"forms_score_{name}"] == only(
-            affine_relu=serve["launches"]["affine_relu"] // 2, window_accumulate=serve["runs"],
+            **scaled(serve["per_batch"], serve["runs"]), window_accumulate=serve["runs"],
             score_finish=1), (name, paths[f"forms_score_{name}"])
     seconds = {name: [] for name in forms}
     for name in list(forms) + list(forms)[::-1]:  # in turns
@@ -2518,7 +2783,7 @@ def sampler_rate(prep: Path, mode: str, threads: int = 8, batches: int = 6) -> f
     return rate
 
 
-def cli_path(card: str, synthetic_ms: dict, bsr_per_forward: int) -> dict:
+def cli_path(card: str, synthetic_ms: dict, per_batch: dict) -> dict:
     """The staged workflow through the port's CLI at full width (phase 6),
     ``test`` once more with ``--tiled 256``. Returns the launch counts of
     each command."""
@@ -2604,6 +2869,7 @@ def cli_path(card: str, synthetic_ms: dict, bsr_per_forward: int) -> dict:
                               "--num-volumes", "1", "--set", "model.compute_dtype", "bfloat16"])
         launches["cli_test"] = read_counts()
         assert launches["cli_test"]["affine_relu"] > 0 and launches["cli_test"]["affine_relu_backward"] == 0
+        assert launches["cli_test"]["affine_gemm"] == launches["cli_test"]["affine_relu"] // 4 * 111
         assert all(launches["cli_test"][k] == 0 for k in ("wce_forward", "wce_backward", *K4_NAMES))
         assert launches["cli_test"]["window_accumulate"] > 0 and launches["cli_test"]["score_finish"] == 1
         out, _ = nifti.read(root / "res" / "test-segmentation-0.nii")
@@ -2615,7 +2881,7 @@ def cli_path(card: str, synthetic_ms: dict, bsr_per_forward: int) -> dict:
                               "--set", "model.compute_dtype", "bfloat16"])
         launches["cli_test_tiled"] = read_counts()
         windows, batches = tiled_batches(vol.shape, TILE, 8, 8)
-        assert launches["cli_test_tiled"] == only(affine_relu=batches * bsr_per_forward), (
+        assert launches["cli_test_tiled"] == only(**scaled(per_batch, batches)), (
             launches["cli_test_tiled"], batches)
         tiled, _ = nifti.read(root / "res_tiled" / "test-segmentation-0.nii")
         tiled = np.asarray(tiled)
@@ -2873,10 +3139,10 @@ def dp_train_rank(arch: str, mesh, out_dir: Path) -> dict:
                 identical=(identical_1, ranks_identical(mesh, st.model)), rows=len(batches[0]["image"]))
 
 
-def serve_float32(mesh=None) -> dict:
+def serve_float32(mesh=None, labelmap: bool = True) -> dict:
     """Phase 4's model and first volume in float32, TF32 off, through
-    ``VolumePredictor`` (over ``mesh`` when given): the labelmap and the
-    scorer's probabilities, on the host."""
+    ``VolumePredictor`` (over ``mesh`` when given): the labelmap (unless
+    ``labelmap`` is False) and the scorer's probabilities, on the host."""
     from hdenseunet_tpu_torch.core.config import Config
     from hdenseunet_tpu_torch.core.initializers import init_model
     from hdenseunet_tpu_torch.infer import postprocess
@@ -2890,9 +3156,9 @@ def serve_float32(mesh=None) -> dict:
     with exact_float32():
         model = init_model(HDenseUNet(preset=cfg.model.preset, device="cuda"), SEED)
         predictor = VolumePredictor(model, cfg, arch="end2end", device="cuda", mesh=mesh)
-        labelmap = predictor.segment(vol, ext)
-        probs = predictor.windows.score(vol - cfg.infer.mean, z_lo, z_hi).cpu()
-    return dict(labelmap=labelmap, probs=probs)
+        out = dict(labelmap=predictor.segment(vol, ext)) if labelmap else {}
+        out["probs"] = predictor.windows.score(vol - cfg.infer.mean, z_lo, z_hi).cpu()
+    return out
 
 
 def dp_serve_rank(mesh, out_dir: Path) -> dict:
@@ -3153,7 +3419,6 @@ def bench_path(card: str) -> dict:
 
     import bench_torch
     from hdenseunet_tpu_torch.infer.device_pipeline import DeviceVolumeScorer
-    from hdenseunet_tpu_torch.models import layers as L
     from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
 
     live, digests, launches = [], [], {}
@@ -3200,11 +3465,11 @@ def bench_path(card: str) -> dict:
     unreliable = sorted(k for k in line if k.endswith("_unreliable"))
 
     serve, train = launches["bench_serve"], launches["bench_train"]
-    bsr = sum(isinstance(m, L.Scale) for m in HDenseUNet(preset="full", device="meta").modules())
+    per_batch = route_counts(HDenseUNet(preset="full", device="meta"))
     finishes = 1 + int(BENCH_ENV["BENCH_PIPELINE_VOLUMES"])  # the pipelined loop's warm-up and volumes
     assert serve["window_accumulate"] == sum(live) and serve["score_finish"] == finishes, (serve, live)
-    assert serve["affine_relu"] >= bsr * sum(live), (serve, bsr, sum(live))
-    assert serve == only(**{k: serve[k] for k in ("affine_relu", "window_accumulate", "score_finish")})
+    assert serve == only(**scaled(per_batch, sum(live)), window_accumulate=sum(live),
+                         score_finish=finishes), (serve, per_batch, sum(live))
     env = {k: int(v) for k, v in BENCH_ENV.items() if k.startswith("BENCH_TRAIN")}
     # the first step, the chained loops, and each endpoint's eager call and capture
     steps = (1 + env["BENCH_TRAIN_REPS"] * env["BENCH_TRAIN_STEPS"]
@@ -3214,11 +3479,23 @@ def bench_path(card: str) -> dict:
         f"bench: bench_torch.main under {BENCH_ENV}: exit {status}, {len(lines)} cumulative lines, "
         f"{seconds:.1f} s; {len(live)} scorings over {sum(live)} live window batches, {len(digests)} "
         f"digests finite; unreliable: {unreliable or 'none'}; launches bench_serve "
-        f"{ {k: v for k, v in serve.items() if v} } (K1 >= {bsr} x {sum(live)}), bench_train "
+        f"{ {k: v for k, v in serve.items() if v} } ({per_batch} x {sum(live)}), bench_train "
         f"{ {k: v for k, v in train.items() if v} } ({steps} steps counted, replays not) [{card}]"
     )
     print(f"  bench line: {json.dumps(line)}")
     return launches
+
+
+class Laps:
+    """Prints each phase's wall seconds and the total so far."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"time: {phase} {now - self.last:.1f} s, {now - self.start:.1f} s in all")
+        self.last = now
 
 
 def main() -> None:
@@ -3228,26 +3505,45 @@ def main() -> None:
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}; cuda {torch.version.cuda}")
+    lap = Laps()
     so, seconds = build.build()
     print(f"build: {so.name} in {seconds:.1f} s")
+    lap("build")
 
     k1 = check_k1(card)
+    lap("k1")
     k1_bwd = check_k1_backward(card)
+    lap("k1_backward")
     k2_fwd, k2_bwd = check_k2(card)
+    lap("k2")
     check_back_to_back(card)
+    lap("back_to_back")
     serve = serve_path(card)
     paths, calls, synthetic_ms = {"serve": serve["launches"]}, {}, {}
+    lap("serve")
     paths.update(serve_dpp_path(card, serve))
+    lap("serve_dpp")
     paths.update(serve_modes(card, serve))
+    lap("serve_modes")
     paths["serve_host_loop"] = serve_host_loop(card, serve)
+    lap("serve_host_loop")
     paths["serve_tiled"] = serve_tiled(card, serve)
+    lap("serve_tiled")
     paths["mfu"] = mfu_path(card, serve)
+    lap("mfu")
     paths["trace"] = trace_path(card, serve)
+    lap("trace")
     k4 = check_k4(card, serve)
+    lap("k4")
     k3 = check_k3(card, serve)
     paths["serve_plain_k3"] = k3["launches"]
+    lap("k3")
+    k5 = check_k5(card, serve)
+    paths["serve_unfused"] = k5["launches"]
+    lap("k5")
     paths.update(forms_serve_path(card, serve))
-    bsr_per_forward = serve["bsr_per_forward"]
+    lap("forms_serve")
+    per_batch = serve["per_batch"]
     serve_ref = dict(labelmap=serve["labelmaps"][0], probs=serve["probs"], seconds=serve["seconds"],
                      k1=serve["launches"]["affine_relu"] // len(serve["cases"]))
     del serve
@@ -3257,10 +3553,14 @@ def main() -> None:
         paths[f"train_{arch}"], calls[f"train_{arch}"] = runs[arch]["launches"], runs[arch]["calls"]
         synthetic_ms[arch] = runs[arch]["ms"]
     paths["train_end2end_convs"] = train_convs_path(card, runs["end2end"])
+    lap("train")
     paths.update(forms_train_path(card, runs["end2end"]))
+    lap("forms_train")
     del runs
     paths.update(graph_path(card))
-    paths.update(cli_path(card, synthetic_ms, bsr_per_forward))
+    lap("graph")
+    paths.update(cli_path(card, synthetic_ms, per_batch))
+    lap("cli")
     k1_bwd.update(sweep_k1_backward(card, calls["train_end2end"]["k1"], TRAIN_STEPS))
     k1_bwd["steps"] = {"train_end2end": dict(
         launches=BSR_2D, ms=k1_bwd["step_ms"], bound_ms=k1_bwd["step_bound_ms"])}
@@ -3268,18 +3568,27 @@ def main() -> None:
             card, {path: found["k2"] for path, found in calls.items()}, TRAIN_STEPS)):
         numbers.update(steps=steps, step_ms=steps["train_end2end"]["ms"],
                        step_bound_ms=steps["train_end2end"]["bound_ms"])
+    lap("sweeps")
     model_check(card)
+    lap("model_check")
     train_check(card)
-    paths["parity"] = parity_path(card, bsr_per_forward)
+    lap("train_check")
+    paths["parity"] = parity_path(card, per_batch)
+    lap("parity")
     paths.update(variants_path(card))
+    lap("variants")
     one_steps = {arch: one_step(arch) for arch in ("end2end", "2d")}
     paths.update(train_dp_w1(card, one_steps))
+    lap("train_dp_w1")
     exact_steps = {arch: one_step(arch, dtype="float32") for arch in ("end2end", "2d")}
-    serve_ref["float32"] = serve_float32()
+    serve_ref["float32"] = k5.pop("float32")  # phase 4's model and first volume, float32, K5
     paths.update(dp_two_ranks(card, one_steps, exact_steps, serve_ref))
+    lap("dp_two_ranks")
     del one_steps, exact_steps, serve_ref
     paths.update(cli_train_dp(card))
+    lap("cli_train_dp")
     paths.update(bench_path(card))
+    lap("bench")
     kernels = []
     for name, source, replaces, numbers in (
         ("affine_relu", "fused_affine.cu", "ops/fused_affine.py:48", k1),
@@ -3293,8 +3602,11 @@ def main() -> None:
         ("compose_finish", "cc.cu", "infer/device_postprocess.py:379", k4["compose_finish"]),
         ("window_accumulate", "score.cu", "infer/device_pipeline.py:1178", k3["numbers"]["window_accumulate"]),
         ("score_finish", "score.cu", "infer/device_pipeline.py:1195", k3["numbers"]["score_finish"]),
+        # no Pallas body: the XLA fusion of the folded affine into the 1x1 convs
+        ("affine_gemm", "affine_gemm.cu", "ops/fused_affine.py:95", k5["numbers"]),
     ):
-        main_path = {"cc.cu": "serve_dpp", "score.cu": "serve"}.get(source, "train_end2end")
+        main_path = {"cc.cu": "serve_dpp", "score.cu": "serve", "affine_gemm.cu": "serve"}.get(
+            source, "train_end2end")
         per = {"launches_per_volume": paths[main_path][name] // 2} if main_path != "train_end2end" else {
             "launches_per_step": paths[main_path][name] // TRAIN_STEPS}
         kernels.append({
@@ -3306,7 +3618,8 @@ def main() -> None:
             **per,
             "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             **numbers,
-            "library_ms": None,  # no single PyTorch call computes the same function
+            # K5's product alone is one cuDNN call; nothing else has one
+            "library_ms": numbers.get("library_ms"),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -58,28 +58,31 @@ print(json.dumps(out))
 """
 
 
-def turn(checkout: Path) -> dict:
-    """One checkout's times, from the last line of its process."""
+def turn(checkout: Path, code: str = TURN) -> dict:
+    """One checkout's times, from the last line of ``code`` run in a
+    process of its own in the checkout."""
     out = subprocess.run(
-        [sys.executable, "-c", TURN], cwd=checkout, capture_output=True, text=True, timeout=900,
+        [sys.executable, "-c", code], cwd=checkout, capture_output=True, text=True, timeout=900,
     )
     if out.returncode != 0:
         raise RuntimeError(f"{checkout}: exit {out.returncode}\n{out.stderr[-4000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def main(code: str = TURN, doc: str = __doc__) -> None:
+    """Time ``code`` (a turn's program, which prints one JSON object of ms
+    last) in every checkout of the command line, in turns."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("dirs", nargs="+", type=Path, help="checkouts, timed in this order each round")
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        raise SystemExit("compare_cc: torch.cuda.is_available() is false; this script needs a card")
+        raise SystemExit(f"{ap.prog}: torch.cuda.is_available() is false; this script needs a card")
     card = card_line()
     times: dict[Path, list[dict]] = {d: [] for d in args.dirs}
     for r in range(args.rounds):
         for d in args.dirs:
-            times[d].append(turn(d))
+            times[d].append(turn(d, code))
             print(f"round {r} {d}: " + ", ".join(f"{k} {v:.4f}" for k, v in times[d][-1].items())
                   + f" ms [{card}]", flush=True)
     for d, runs in times.items():

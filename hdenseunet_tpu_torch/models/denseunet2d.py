@@ -104,7 +104,9 @@ class DenseUNet2D(nn.ModuleDict):
         """x: (B, H, W, 3), H and W divisible by 32 ->
         (ac_up4 features (B, H, W, F), logits (B, H, W, num_classes)).
 
-        ``ctx`` None is inference. With a training ``ctx`` the BNs use batch
+        ``ctx`` None is inference, where each dense block lives in one
+        buffer and every bottleneck and transition is one K5 launch
+        (:func:`layers.dense_block`). With a training ``ctx`` the BNs use batch
         statistics unless ``bn_frozen``, dropout runs at ``block_dropout``
         after every encoder conv and at ``decoder_dropout`` before bn_up4,
         and each conv block may be rematerialised (denseunet2d.py:46-218).
@@ -120,21 +122,28 @@ class DenseUNet2D(nn.ModuleDict):
         L.tap(taps, "relu1", x)
         box = [x]  # the encoder's skip features (denseunet.py:168-177)
         x = L.max_pool(x, 3, 2, pad=1)
+        fused = L.fused_1x1(ctx)
         for block_idx, nb_layers in enumerate(self.blocks):
             stage = block_idx + 2
             last = block_idx == len(self.blocks) - 1
-            for branch in range(1, nb_layers + 1):  # dense block (densenet.py:103-193)
-                block = lambda c, f, base=f"conv{stage}_{branch}": self._conv_block(
-                    c, f, base, frozen, rate
-                )
-                x = L.channels_last(torch.cat([x, L.maybe_remat(ctx, block, x)], dim=1))
+            if fused:  # the block in one buffer, each bottleneck one K5 launch
+                x = L.dense_block(self, x, f"conv{stage}", nb_layers, lambda conv, h: conv(h))
+            else:
+                for branch in range(1, nb_layers + 1):  # dense block (densenet.py:103-193)
+                    block = lambda c, f, base=f"conv{stage}_{branch}": self._conv_block(
+                        c, f, base, frozen, rate
+                    )
+                    x = L.channels_last(torch.cat([x, L.maybe_remat(ctx, block, x)], dim=1))
             if not last:
                 L.tap(taps, f"concat_{stage}_{nb_layers}", x)
                 box.append(x)
-            x = self._bsr(x, f"conv{stage}_blk", ctx, frozen)
             if last:
+                x = self._bsr(x, f"conv{stage}_blk", ctx, frozen)
                 L.tap(taps, f"relu{stage}_blk", x)
-            else:  # transition (densenet.py:140-166)
+            elif fused:  # transition (densenet.py:140-166): BN∘Scale∘ReLU and conv in K5
+                x = L.avg_pool(L.bsr_conv1x1(self, x, f"conv{stage}_blk"), 2, 2)
+            else:
+                x = self._bsr(x, f"conv{stage}_blk", ctx, frozen)
                 x = L.maybe_dropout(ctx, self[f"conv{stage}_blk"](x), rate)
                 x = L.avg_pool(x, 2, 2)
         skips = [None] * 5

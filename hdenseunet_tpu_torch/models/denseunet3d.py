@@ -190,7 +190,10 @@ class DenseUNet3D(nn.ModuleDict):
         """x: (B, H, W, D, C), H and W divisible by 32, D by 4 ->
         (ac_up4 features (B, H, W, D, F), logits (B, H, W, D, num_classes)).
 
-        ``ctx`` None is inference; a training ``ctx`` gives live BNs (unless
+        ``ctx`` None is inference, each dense block in one buffer and every
+        bottleneck and transition one K5 launch, a 1x1x1 convolution being
+        the same product of rows in every form (:func:`layers.dense_block`);
+        a training ``ctx`` gives live BNs (unless
         ``bn_frozen``), dropout at ``block_dropout`` after every encoder conv
         and per-block remat (denseunet3d.py:126-294). Dropout keeps elements
         by their index in the form's memory order, so each form draws
@@ -217,20 +220,27 @@ class DenseUNet3D(nn.ModuleDict):
         stem = self["3dconv1"]
         x = ops.stem_s2d(stem, x) if stem_s2d else ops.conv(stem, x)
         x = ops.max_pool(self._bsr(x, "3dconv1", ctx, frozen), 3, 2, pad=1)
+        fused = L.fused_1x1(ctx)
         for block_idx, nb_layers in enumerate(self.blocks):
             stage = block_idx + 2
             last = block_idx == len(self.blocks) - 1
-            for branch in range(1, nb_layers + 1):  # dense block (denseunet3d.py:18-77)
-                block = lambda c, f, base=f"3dconv{stage}_{branch}": self._conv_block(
-                    ops, c, f, base, frozen, rate
-                )
-                x = L.channels_last(torch.cat([x, L.maybe_remat(ctx, block, x)], dim=1))
+            if fused:  # the block in one buffer, each bottleneck one K5 launch
+                x = L.dense_block(self, x, f"3dconv{stage}", nb_layers, ops.conv)
+            else:
+                for branch in range(1, nb_layers + 1):  # dense block (denseunet3d.py:18-77)
+                    block = lambda c, f, base=f"3dconv{stage}_{branch}": self._conv_block(
+                        ops, c, f, base, frozen, rate
+                    )
+                    x = L.channels_last(torch.cat([x, L.maybe_remat(ctx, block, x)], dim=1))
             if not last:
                 tap(f"3dconcat_{stage}_{nb_layers}", x)
-            x = self._bsr(x, f"3dconv{stage}_blk", ctx, frozen)
             if last:
+                x = self._bsr(x, f"3dconv{stage}_blk", ctx, frozen)
                 tap(f"3drelu{stage}_blk", x)
-            else:  # z-preserving transition
+            elif fused:  # z-preserving transition, its BN∘Scale∘ReLU and conv in K5
+                x = ops.avg_pool(L.bsr_conv1x1(self, x, f"3dconv{stage}_blk"), (2, 2, 1), (2, 2, 1))
+            else:
+                x = self._bsr(x, f"3dconv{stage}_blk", ctx, frozen)
                 x = L.maybe_dropout(ctx, ops.conv(self[f"3dconv{stage}_blk"], x), rate)
                 x = ops.avg_pool(x, (2, 2, 1), (2, 2, 1))
         for idx, up in enumerate(UPSAMPLE):  # UpSample -> Conv3x3x3 -> BN -> ReLU

@@ -52,6 +52,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.mesh import all_reduce_sum, axis_group, axis_rank, axis_size
+from ..ops import affine_gemm as K5
 from ..ops.fused_affine import AffineReLU, fold_bn_scale
 
 _FORMATS = {4: torch.channels_last, 5: torch.channels_last_3d}
@@ -430,13 +431,72 @@ def bn_scale_relu(
     if ctx is not None and not frozen:
         y = sc(bn(x, ctx))
         return torch.relu(y) if relu_after else y
-    if ctx is None and sc.folded is not None:
-        a, b = sc.folded
-    else:
-        a, b = fold_bn_scale(
-            bn.gamma, bn.beta, bn.moving_mean, bn.moving_variance, sc.gamma, sc.beta, bn.eps
-        )
+    a, b = folded_pair(bn, sc, ctx)
     return AffineReLU.apply(x, a, b, relu_after)
+
+
+def folded_pair(bn: BatchNorm, sc: Scale, ctx: Ctx | None = None):
+    """The float32 (A, B) of a frozen bn∘sc: the pair :meth:`Scale.freeze`
+    folded, at inference when there is one, else folded now."""
+    if ctx is None and sc.folded is not None:
+        return sc.folded
+    return fold_bn_scale(
+        bn.gamma, bn.beta, bn.moving_mean, bn.moving_variance, sc.gamma, sc.beta, bn.eps
+    )
+
+
+def fused_1x1(ctx: Ctx | None) -> bool:
+    """Whether a forward takes the fused dense-block route
+    (:func:`dense_block`, :func:`bsr_conv1x1`): at inference (``ctx``
+    None), never in training. Every encoder BN∘Scale∘ReLU in front of a 1x1
+    convolution then runs inside K5 (``ops/affine_gemm.py``), and so does
+    the one behind a bottleneck; K1 is left where no 1x1 convolution
+    follows (the stems' and the last block's). Training keeps K1, cuDNN and
+    the concatenation: K5 has no backward."""
+    return ctx is None
+
+
+def bsr_conv1x1(layers, x, base: str, then: str | None = None):
+    """At inference, ``layers[base]``, a 1x1 (1x1x1) convolution without
+    bias, on the frozen BN∘Scale∘ReLU ``base + '_bn'`` / ``'_scale'`` of
+    x, followed by the BN∘Scale∘ReLU ``then`` when given: one K5 launch.
+    x (B, K, *S) may be the first K channels of a dense block's buffer.
+    The convolution's FLOPs are counted as :meth:`Conv.forward` counts
+    them."""
+    conv = layers[base]
+    assert conv.kernel_size == (1,) * conv.ndim and conv.stride == (1,) * conv.ndim, base
+    assert conv.bias is None and x.dim() in (4, 5), base
+    k = int(x.shape[1])
+    conv.count(float(x.numel() // k), k)
+    a1, b1 = folded_pair(layers[base + "_bn"], layers[base + "_scale"])
+    a2 = b2 = None
+    if then is not None:
+        a2, b2 = folded_pair(layers[then + "_bn"], layers[then + "_scale"])
+    w = conv.kernel.to(x.dtype).reshape(conv.kernel.shape[0], k)
+    return K5.affine_gemm(x, w, a1, b1, a2, b2)
+
+
+def dense_block(layers, x, prefix: str, nb_layers: int, conv3x3):
+    """One dense block at inference in one buffer: x (B, C0, *S) and every
+    layer's ``growth`` new channels in a preallocated channels-last (B, C0 +
+    nb_layers * growth, *S) tensor, which is returned. Layer ``prefix_b``
+    reads channels [0, C) in place through one K5 launch (its x1
+    BN∘Scale∘ReLU, 1x1 convolution and x2 BN∘Scale∘ReLU,
+    :func:`bsr_conv1x1`), then ``conv3x3(layers[prefix_b_x2], h)`` (the
+    layout's 3x3 convolution) writes channels [C, C + growth): the same
+    values as the concatenation of the training route, none of its
+    copies."""
+    growth = int(layers[f"{prefix}_1_x2"].kernel.shape[0])
+    c = int(x.shape[1])
+    buf = torch.empty((x.shape[0], c + nb_layers * growth, *x.shape[2:]), dtype=x.dtype,
+                      device=x.device, memory_format=_FORMATS[x.dim()])
+    buf[:, :c] = x
+    for branch in range(1, nb_layers + 1):
+        base = f"{prefix}_{branch}"
+        h = bsr_conv1x1(layers, buf[:, :c], base + "_x1", then=base + "_x2")
+        buf[:, c : c + growth] = conv3x3(layers[base + "_x2"], h)
+        c += growth
+    return buf
 
 
 def freeze_bn_scale(model: nn.Module):

@@ -14,10 +14,11 @@ One process per card, as ``torchrun`` starts them:
   the rank's card, :func:`local_device`);
 * :func:`is_primary` picks the process that owns console output and files.
 
-The backend is NCCL for a rank on a card and gloo on the CPU. The port issues
-only ``all_reduce``, ``broadcast`` and ``barrier``, which gloo also runs on
-CUDA tensors: several ranks can share one card over gloo, which NCCL
-refuses (tests/test_torch_dp_*.py, chip_smoke.py).
+The backend is NCCL for a rank on a card and gloo, asked for by name, on
+the CPU. The port issues only ``all_reduce``, ``broadcast`` and
+``barrier``, which gloo also runs on CUDA tensors: several ranks can share
+one card over gloo, which NCCL refuses (tests/test_torch_dp_*.py,
+chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -44,11 +45,13 @@ def initialize(
 
     Arguments fall back to ``WORLD_SIZE`` / ``RANK``, and the rendezvous to
     ``env://`` (``MASTER_ADDR`` / ``MASTER_PORT``); ``init_method`` may also
-    be a ``file://`` or ``tcp://`` address. ``backend`` defaults to NCCL when
-    a card is present (the rank's card, :func:`local_device`, becomes the
-    current device first) and to gloo otherwise. ``timeout`` bounds the
-    rendezvous and every collective. Nothing configured: a no-op returning
-    False. Already joined: returns whether the group has several ranks."""
+    be a ``file://`` or ``tcp://`` address. ``backend`` defaults to NCCL (the
+    rank's card, :func:`local_device`, becomes the current device first);
+    without a card that default raises, as :func:`core.mesh.make_mesh`
+    does: a CPU group is asked for with ``backend='gloo'``. ``timeout``
+    bounds the rendezvous and every collective. Nothing configured: a no-op
+    returning False. Already joined: returns whether the group has several
+    ranks."""
     if dist.is_initialized():
         return dist.get_world_size() > 1
     env = os.environ
@@ -65,7 +68,9 @@ def initialize(
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} is outside a world of {world_size}")
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        if not torch.cuda.is_available():
+            raise RuntimeError("initialize: no CUDA card; pass backend='gloo' for a CPU group")
+        backend = "nccl"
     if backend == "nccl":
         torch.cuda.set_device(local_device())
     dist.init_process_group(

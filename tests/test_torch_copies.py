@@ -248,7 +248,7 @@ def _forbidden(name: str) -> bool:
 @pytest.mark.parametrize(
     "script",
     ["chip_smoke.py", "profile_serving.py", "profile_train.py", "profile_feed.py", "compare_train_steps.py",
-     "compare_cc.py", "bench_torch.py", "hdenseunet_tpu_torch"],
+     "compare_cc.py", "compare_k5.py", "bench_torch.py", "hdenseunet_tpu_torch"],
 )
 def test_no_import_statement_names_jax(script):
     """Every import statement, nested ones included, of the port's files and

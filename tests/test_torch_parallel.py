@@ -213,6 +213,33 @@ def test_initialize_is_a_noop_without_environment(no_env):
     assert not torch.distributed.is_initialized()
 
 
+def test_initialize_without_a_card_needs_gloo(no_env, tmp_path):
+    """A group to join, no ``backend`` and no card: ``initialize`` raises
+    and joins nothing, rather than quietly make a CPU group;
+    ``backend='gloo'`` joins one. In a subprocess with CUDA hidden, so the
+    test asks the same question where a card is present."""
+    code = (
+        "import torch.distributed as dist\n"
+        "from hdenseunet_tpu_torch.parallel import multihost as H\n"
+        f"store = 'file://{tmp_path}/store'\n"
+        "try:\n"
+        "    H.initialize(init_method=store, world_size=1, rank=0)\n"
+        "except RuntimeError as e:\n"
+        "    print(e)\n"
+        "else:\n"
+        "    raise SystemExit('initialize() joined a group without a card')\n"
+        "assert not dist.is_initialized()\n"
+        "assert H.initialize(init_method=store + '2', world_size=1, rank=0, backend='gloo') is False\n"
+        "assert dist.get_backend() == 'gloo'\n"
+        "dist.destroy_process_group()\n"
+    )
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "no CUDA card; pass backend='gloo'" in out.stdout
+
+
 @pytest.mark.parametrize("case", ["no_master_addr", "world_without_rank", "rank_outside", "timeout"])
 def test_initialize_raises_on_a_broken_environment(no_env, monkeypatch, tmp_path, case):
     """A configured environment that cannot be joined raises; nothing falls
