@@ -76,7 +76,8 @@ failure exits non-zero):
      float64 product of the kernel's own operand within its stated bound;
      ms warm and L2-flushed, the plain version's in turns, cuDNN's 1x1
      convolution alone (library_ms), the unfused chain (K1, cuDNN, K1),
-     the bound over the bf16 peak, kernels per call; one float32 case;
+     the bound over the bf16 peak, kernels per call, the form (tile width,
+     persistent blocks) and host us a call; one float32 case;
      then the served path: K1's inputs only the stems' and last blocks'
      widths, both volumes' labelmasks on the concatenation route
      (serve_unfused: K1 220 a window batch, no K5) and their voxels
@@ -416,6 +417,21 @@ def kernels_per_call(fn, expect: int = 1) -> int:
     if not names:
         print(f"  kernels per call: {expect} launch calls; the profiler kept no device event")
     return expect
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Host microseconds per call of fn, queued while a ~50 ms sleep kernel
+    holds the stream, so that the host never waits on the card."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def in_turns(kernel, plain) -> tuple[float, float]:
@@ -1343,7 +1359,10 @@ def check_k5(card: str, serve: dict) -> dict:
     output, the one PyTorch call for the product, which the port never
     makes), the unfused chain's (K1, cuDNN, K1 on the concatenation), the
     bound (the larger of (MK + NK + MN) 2 bytes over 3.35 TB/s and 2MNK over
-    the bf16 peak), kernels per call. Then phase 4's first volume scored once
+    the bf16 peak), kernels per call, the form the launch took (the output
+    tile's width and the persistent grid, ``affine_gemm.form``) and the
+    wrapper's host microseconds a call (:func:`host_us`). Then phase 4's
+    first volume scored once
     with every K1 input's channels recorded: only the stems' and the last
     blocks' widths, none between a bottleneck and its 3x3 (an x2
     BN∘Scale∘ReLU would show 192 or 128); both volumes' labelmasks through
@@ -1390,12 +1409,14 @@ def check_k5(card: str, serve: dict) -> dict:
         t_bytes = (rows * k + n * k + rows * n) * 2 / HBM_BYTES_PER_S * 1e3
         t_ops = 2 * rows * n * k / BF16_OPS_PER_S * 1e3
         b = dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+        form, us = K5.form(rows, n, torch.bfloat16), host_us(kernel)
         print(f"K5 {label}: rows {rows}, K {k} of {ld}, N {n}, epilogue {epi}: max_abs_err {err:.3g} "
               f"against the plain version ({err64:.3g} against float64), kernel {ms:.4f} ms, L2 flushed "
               f"{flushed:.4f}, plain {plain_ms:.4f} (in turns), library (cuDNN 1x1 alone) "
               f"{library_ms:.4f}, unfused chain (K1, cuDNN, K1) {chain_ms:.4f}, bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {100 * b['bound_ms'] / ms:.1f} % of it "
-              f"[{card}]")
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {100 * b['bound_ms'] / ms:.1f} % of it; form: "
+              f"TMA and wgmma, 128 x {form['tile_n']} tiles, {form['blocks']} persistent blocks; host "
+              f"{us:.1f} us a call [{card}]")
         if label == "2d stage 2 last":
             numbers = dict(ms=ms, plain_ms=plain_ms, cold_ms=flushed, library_ms=library_ms,
                            chain_ms=chain_ms, **b, kernels_per_call=kernels_per_call(kernel),

@@ -11,7 +11,8 @@ of its own started in that checkout, which builds that checkout's kernels
 and times, through its own ``chip_smoke`` (``k5_shapes``, ``k5_case``,
 ``cuda_ms``, ``cold_ms``), K5 at each served shape of a window batch, warm
 and with the L2 flushed, and the unfused chain it replaced (K1, cuDNN's
-1x1 convolution, K1 on the concatenation) warm. It prints each turn's times
+1x1 convolution, K1 on the concatenation) warm, and K5's host time a call
+("host", queued while a sleep kernel holds the stream). It prints each turn's times
 and per checkout the median of each time over the rounds, every line with
 the card's name and power limit. It raises without a card and catches
 nothing.
@@ -21,7 +22,7 @@ from __future__ import annotations
 from compare_cc import main
 
 TURN = """
-import json, torch
+import json, time, torch
 import torch.nn.functional as F
 import chip_smoke as S
 from hdenseunet_tpu_torch.models import layers as L
@@ -39,6 +40,13 @@ for label, rows, k, ld, n, epi, ndim in S.k5_shapes():
     out[label] = S.cuda_ms(kernel)
     out[label + " L2 flushed"] = S.cold_ms(kernel)
     out[label + " chain"] = S.cuda_ms(chain)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        kernel()
+    out[label + " host"] = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
     del x, w, args, xc
 print(json.dumps(out))
 """

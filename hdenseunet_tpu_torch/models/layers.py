@@ -448,12 +448,15 @@ def folded_pair(bn: BatchNorm, sc: Scale, ctx: Ctx | None = None):
 def fused_1x1(ctx: Ctx | None) -> bool:
     """Whether a forward takes the fused dense-block route
     (:func:`dense_block`, :func:`bsr_conv1x1`): at inference (``ctx``
-    None), never in training. Every encoder BN∘Scale∘ReLU in front of a 1x1
-    convolution then runs inside K5 (``ops/affine_gemm.py``), and so does
-    the one behind a bottleneck; K1 is left where no 1x1 convolution
-    follows (the stems' and the last block's). Training keeps K1, cuDNN and
-    the concatenation: K5 has no backward."""
-    return ctx is None
+    None) with no gradient recorded (``no_grad``/``inference_mode``, as
+    every scorer runs), never in training. Every encoder BN∘Scale∘ReLU in
+    front of a 1x1 convolution then runs inside K5 (``ops/affine_gemm.py``),
+    and so does the one behind a bottleneck; K1 is left where no 1x1
+    convolution follows (the stems' and the last block's). Training and an
+    inference forward under grad mode keep K1, cuDNN and the concatenation,
+    which backpropagate: K5 has no backward, and the block buffer is
+    written in place."""
+    return ctx is None and not torch.is_grad_enabled()
 
 
 def bsr_conv1x1(layers, x, base: str, then: str | None = None):

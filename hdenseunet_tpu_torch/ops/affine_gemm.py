@@ -19,8 +19,10 @@ On a CUDA tensor :func:`affine_gemm` launches K5 or raises; on a CPU or meta
 tensor it runs :func:`affine_gemm_reference`, the unfused chain op for op
 (``affine_relu_reference``, ``F.conv2d``/``F.conv3d``,
 ``affine_relu_reference``). There is no fallback from the kernel to its
-plain version. K5 has no backward: training keeps K1, cuDNN and the
-concatenation.
+plain version. K5 has no backward: training and any forward that records
+a gradient keep K1, cuDNN and the concatenation (``layers.fused_1x1``), and
+on a CUDA tensor :func:`affine_gemm` raises rather than return a result
+that cuts the graph.
 """
 from __future__ import annotations
 
@@ -109,14 +111,26 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def _lib():
     lib = build.library()
     lib.hdu_affine_gemm.argtypes = [_P, _LL, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]
+    lib.hdu_affine_gemm_form.argtypes = [_LL, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_LL)]
+    lib.hdu_affine_gemm_form.restype = None
     return lib
 
 
+def form(rows: int, n: int, dtype) -> dict:
+    """The launch :func:`affine_gemm` makes on the card for ``rows`` rows,
+    N ``n`` and ``dtype``: ``tile_n``, the output tile's width (0 for the
+    float32 tiling), and ``blocks``, the grid (the bfloat16 form is
+    persistent: at most one block an SM). Needs the built library."""
+    bn, blocks = _I(), _LL()
+    _lib().hdu_affine_gemm_form(rows, n, build.DTYPE_CODES[dtype], ctypes.byref(bn), ctypes.byref(blocks))
+    return dict(tile_n=bn.value, blocks=blocks.value)
+
+
 def _aligned(v, x):
-    """v as a contiguous float32 vector on x's device, 16-byte aligned (the
-    kernel reads A1 and B1 eight at a time)."""
+    """v as a contiguous float32 vector on x's device, 8-byte aligned (the
+    kernel reads A1 and B1 two at a time)."""
     v = _f32_vector(v, x)
-    return v if v.data_ptr() % 16 == 0 else v.clone()
+    return v if v.data_ptr() % 8 == 0 else v.clone()
 
 
 def affine_gemm(x, w, scale, shift, scale2=None, shift2=None):
@@ -138,6 +152,10 @@ def affine_gemm(x, w, scale, shift, scale2=None, shift2=None):
         raise ValueError("affine_gemm: scale2 and shift2 come together")
     if x.is_cpu or x.is_meta:
         return affine_gemm_reference(x, w, scale, shift, scale2, shift2)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, scale, shift, scale2, shift2)):
+        raise RuntimeError("affine_gemm: K5 has no backward; run it under no_grad or inference_mode, "
+                           "or take the unfused route")
     if not x.is_cuda or w.device != x.device:
         raise ValueError(f"affine_gemm: x and w must share a CUDA device, got {x.device}, {w.device}")
     if x.dtype not in build.DTYPE_CODES or w.dtype != x.dtype:

@@ -17,10 +17,11 @@ name and power limit:
    K2 forward and backward) and each of them by name, the host's operators
    by self CPU time, and the host self time of the port's four autograd
    wrappers per call;
-3. the host time per call of each of the port's four kernel wrappers alone,
-   at one end2end step shape, with the card held busy so that no call waits
-   on it: the wrapper's Python, ctypes and launch cost, which the profiler's
-   self time of the autograd wrappers mixes with remat's recompute;
+3. the host time per call of each of the port's four training kernel
+   wrappers alone, at one end2end step shape, and of K5's at a served
+   shape, with the card held busy so that no call waits on it: the
+   wrapper's Python, ctypes and launch cost, which the profiler's self time
+   of the autograd wrappers mixes with remat's recompute;
 4. the end2end step with the kernels against the step with their plain
    PyTorch versions, in turns (plain, kernels, kernels, plain per pair). The
    plain versions are switched on here only, by pointing the wrappers'
@@ -141,10 +142,12 @@ def profile_step(state, cfg, batch, arch: str, card: str, trace: str | None) -> 
 
 def wrapper_host_us(card: str, calls: int = 200) -> None:
     """Host microseconds per call of K1 forward and backward on a
-    channels-last 64x192x7x7 bf16 tensor (block 4's bottleneck BN) and of
-    K2 forward and backward on 401,408 rows, while a sleep kernel holds the
-    stream, so that the host never waits on the card."""
-    from hdenseunet_tpu_torch.ops import fused_affine as K, wce as W
+    channels-last 64x192x7x7 bf16 tensor (block 4's bottleneck BN), of K2
+    forward and backward on 401,408 rows and of K5 at 2D stage 5's last
+    served bottleneck (9,216 rows, K 2160 of a 2208-wide buffer, N 192),
+    while a sleep kernel holds the stream, so that the host never waits on
+    the card."""
+    from hdenseunet_tpu_torch.ops import affine_gemm as K5, fused_affine as K, wce as W
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn((64, 7, 7, 192), device="cuda", generator=gen).to(torch.bfloat16).movedim(-1, 1)
@@ -157,11 +160,16 @@ def wrapper_host_us(card: str, calls: int = 200) -> None:
     mask, w = torch.ones(n, device="cuda"), torch.tensor((0.78, 0.65, 8.57), device="cuda")
     _, cnt = W.wce_forward(logits, labels, mask, w)
     one = torch.ones((), device="cuda")
+    buf = torch.randn((9216, 2208), device="cuda", generator=gen).to(torch.bfloat16)
+    xk = buf[:, :2160].view(1, 9216, 1, 2160).movedim(-1, 1)
+    wk = (torch.randn((192, 2160), device="cuda", generator=gen) / 48).to(torch.bfloat16)
+    pairs = [torch.rand(c, device="cuda", generator=gen) for c in (2160, 2160, 192, 192)]
     wrappers = {
         "affine_relu": lambda: K.affine_relu(x, a, b),
         "affine_relu_backward": lambda: K.affine_relu_backward(g, x, a, y),
         "wce_forward": lambda: W.wce_forward(logits, labels, mask, w),
         "wce_backward": lambda: W.wce_backward(logits, labels, mask, w, cnt, one),
+        "affine_gemm": lambda: K5.affine_gemm(xk, wk, *pairs),
     }
     us = {}
     for name, fn in wrappers.items():

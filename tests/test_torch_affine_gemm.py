@@ -15,7 +15,11 @@ chain and against the JAX package.
   package's.
 
 The card tests take the ``cuda`` fixture and skip without a card; they hold
-the kernel to a float64 product of its own operand at each shape class:
+the kernel to a float64 product of its own operand at each shape class and
+at the edges of its tiles (M under one tile, fewer tiles than SMs, N tiles
+past N), check that a buffer's channels past K are never read, that two
+calls give the same bytes, and that misaligned operands and inputs that
+require grad under grad mode are refused:
 
     python -m pytest --noconftest -q tests/test_torch_affine_gemm.py -k cuda
 """
@@ -322,19 +326,41 @@ CARD_CASES = [
     (16384, 224, 224, 112, False),
     (4096, 496, 496, 248, False),
     (128, 248, 256, 32, True),
+    (77, 96, 104, 192, True),  # M below one 128-row tile
+    (4096, 472, 504, 128, True),  # 32 tiles: fewer blocks than SMs, K mod 64 = 24
+    (2048 + 40, 2160, 2208, 192, True),  # 17 tiles, K 2160
+    (6000, 2160, 2208, 192, True),  # 47 tiles
+    (4096 + 77, 496, 496, 248, False),  # N 248 in one 256-wide tile, ragged M
+    (9216 + 33, 768, 768, 384, False),  # two 192-wide N tiles, ragged M
+    (2304 + 19, 2112, 2112, 1056, False),  # six N tiles, the last half past N
 ]
+
+
+def _card_case(cuda, rows, k, ld, n, epilogue, dtype, fill=None):
+    """Seeded card inputs: x the first k channels of a (rows, ld) buffer seen
+    as (1, K, rows, 1), its channels [k, ld) set to ``fill`` when given."""
+    g = torch.Generator(device=cuda).manual_seed(rows + k)
+    buf = (2 * torch.randn(rows, ld, device=cuda, generator=g)).to(dtype)
+    if fill is not None:
+        buf[:, k:] = fill
+    x = buf[:, :k].view(1, rows, 1, k).movedim(-1, 1)  # (1, K, rows, 1), rows of stride ld
+    w = (torch.randn(n, k, device=cuda, generator=g) * k**-0.5).to(dtype)
+    pairs = [(1 + 0.5 * torch.randn(c, device=cuda, generator=g), 0.5 * torch.randn(c, device=cuda, generator=g))
+             for c in (k, n)]
+    return x, w, (*pairs[0], *(pairs[1] if epilogue else ()))
+
+
+def _within_float64(x, w, args, got):
+    rows, n = x.numel() // x.shape[1], w.shape[0]
+    want, tol = K5.float64_reference(x, w, *args)
+    err = (got.movedim(1, -1).reshape(rows, n).double() - want).abs()
+    assert bool((err <= tol).all()), float(err.max())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,k,ld,n,epilogue", CARD_CASES)
 def test_cuda_k5_matches_float64(cuda, rows, k, ld, n, epilogue, dtype):
-    g = torch.Generator(device=cuda).manual_seed(rows + k)
-    buf = (2 * torch.randn(rows, ld, device=cuda, generator=g)).to(dtype)
-    x = buf[:, :k].view(1, rows, 1, k).movedim(-1, 1)  # (1, K, rows, 1), rows of stride ld
-    w = (torch.randn(n, k, device=cuda, generator=g) * k**-0.5).to(dtype)
-    pairs = [(1 + 0.5 * torch.randn(c, device=cuda, generator=g), 0.5 * torch.randn(c, device=cuda, generator=g))
-             for c in (k, n)]
-    args = (*pairs[0], *(pairs[1] if epilogue else ()))
+    x, w, args = _card_case(cuda, rows, k, ld, n, epilogue, dtype)
     before = K5.affine_gemm.launches
     got = K5.affine_gemm(x, w, *args)
     torch.cuda.synchronize()
@@ -347,3 +373,57 @@ def test_cuda_k5_matches_float64(cuda, rows, k, ld, n, epilogue, dtype):
         _, tol_plain = K5.float64_reference(x, w, *args, fused=False)
         diff = (got.float() - plain.float()).abs().movedim(1, -1).reshape(rows, n).double()
         assert bool((diff <= tol + tol_plain).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("rows,k,ld,n", [(36 * 16 * 16, 2160, 2208, 192), (4096, 472, 504, 128),
+                                         (8 * 16 * 16 * 2, 248, 264, 128)])
+def test_cuda_k5_never_reads_past_k(cuda, rows, k, ld, n):
+    """The buffer's channels [K, ld) hold NaN (``torch.empty`` leaves any
+    bits there): a load that spans ld would read them."""
+    x, w, args = _card_case(cuda, rows, k, ld, n, True, torch.bfloat16, fill=float("nan"))
+    got = K5.affine_gemm(x, w, *args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _within_float64(x, w, args, got)
+
+
+@pytest.mark.parametrize("rows,k,ld,n,epilogue", [(36 * 16 * 16, 2160, 2208, 192, True),
+                                                  (4096, 472, 504, 128, True),
+                                                  (36864, 2112, 2112, 1056, False),
+                                                  (36 * 64 * 64, 96, 384, 192, True)])
+def test_cuda_k5_repeats_bit_for_bit(cuda, rows, k, ld, n, epilogue):
+    """Two calls on the same inputs give the same bytes: each output's sum
+    is one block's, in k order, with no atomics."""
+    x, w, args = _card_case(cuda, rows, k, ld, n, epilogue, torch.bfloat16)
+    first = K5.affine_gemm(x, w, *args)
+    second = K5.affine_gemm(x, w, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def test_cuda_k5_refuses_misaligned_operands(cuda):
+    x, w, args = _card_case(cuda, 256, 96, 104, 192, True, torch.bfloat16)
+    buf = torch.zeros(256 * 104 + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(256, 104)[:, :96].view(1, 256, 1, 96).movedim(-1, 1)  # base 2 bytes off
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K5.affine_gemm(shifted, w, *args)
+    odd = torch.zeros(256, 100, dtype=torch.bfloat16, device=cuda)[:, :96].view(1, 256, 1, 96).movedim(-1, 1)
+    assert K5.row_stride(odd) == 100
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K5.affine_gemm(odd, w, *args)
+
+
+def test_cuda_k5_refuses_grad(cuda):
+    """K5 has no backward: under grad mode it raises for an input that
+    requires grad instead of returning a result that cuts the graph."""
+    x, w, args = _card_case(cuda, 256, 96, 104, 192, True, torch.bfloat16)
+    before = K5.affine_gemm.launches
+    for leaf in ("x", "w", "scale"):
+        xs, ws, a = x.detach(), w.detach(), [t.detach() for t in args]
+        {"x": xs, "w": ws, "scale": a[0]}[leaf].requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            K5.affine_gemm(xs, ws, *a)
+        with torch.no_grad():
+            K5.affine_gemm(xs, ws, *a)
+    torch.cuda.synchronize()
+    assert K5.affine_gemm.launches == before + 3
