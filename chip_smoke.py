@@ -43,8 +43,10 @@ failure exits non-zero):
      serve path's synchronised device scoring of the same run;
    - trace: one ``VolumePredictor.segment`` inside ``utils.profiling.trace``
      (torch.profiler): the trace names K1's and K5's kernels and the predictor's
-     scoring, fetch and postprocess scopes; the ten device ops with the
-     most time;
+     scoring, fetch and postprocess scopes; the program's recorder
+     (``utils.profiling.snapshot``: each span's count, host and self
+     seconds and syncs, and the scorer's counters, ``window_batches``
+     equal to K3a's launches); the ten device ops with the most time;
    - K4 (cc_label 26 and 6, largest_component, fill_holes, compose_prep,
      compose_finish) against its plain versions on the card and
      native/postprocess.cpp at 512x512x112 (random masks at four densities,
@@ -98,7 +100,7 @@ failure exits non-zero):
 5. the training path: ``train`` for 4 end2end steps at full width (global
    batch 8 of 224x224x8 sub-volumes, bfloat16, remat), then 4 steps of the
    2D stage at bench.py's configuration (batch 8 of 224x224 slabs; each
-   run's StepTimer.stats over steps 2-4), then
+   run's ms/step over steps 2-4), then
    the end2end steps again under ``remat_policy='convs'`` (launches per
    step; ms/step, peak memory and losses beside the 'full' run's and a
    second 'full' run's, equal to the first bit for bit; one step of each
@@ -951,10 +953,13 @@ def trace_path(card: str, serve: dict) -> dict:
     """One ``VolumePredictor.segment`` of phase 4's first volume inside
     ``utils.profiling.trace``: its labelmap as phase 4's, a trace file that
     names K1's and K5's kernels and the predictor's scoring, fetch and postprocess
-    scopes; the device time of the convolution kernels (their rate of
+    scopes; the program's recorder over the segment (each span's count,
+    host and self seconds and syncs; ``window_batches`` equal to K3a's
+    launches); the device time of the convolution kernels (their rate of
     estimate_flops), of K5, of K1, of cat and copies and of the rest, and the
     ten device ops with the most time. Returns the launch counts."""
     from hdenseunet_tpu_torch.infer import postprocess
+    from hdenseunet_tpu_torch.utils import profiling
     from hdenseunet_tpu_torch.utils.flops import peak_flops_per_chip
     from hdenseunet_tpu_torch.utils.profiling import trace
 
@@ -962,11 +967,13 @@ def trace_path(card: str, serve: dict) -> dict:
     BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_", dir=BUILD) as logdir:
         reset_counts()
+        profiling.reset()
         t0 = time.perf_counter()
         with trace(logdir) as prof:
             lab = serve["predictor"].segment(vol, ext)
         wall = time.perf_counter() - t0
         launches = read_counts()
+        recorded = profiling.snapshot()
         files = list(Path(logdir).glob("*.pt.trace.json"))
         assert len(files) == 1, files
         text = files[0].read_text()
@@ -976,11 +983,13 @@ def trace_path(card: str, serve: dict) -> dict:
     missing = [n for n in [f'"{scope}"' for scope in SCOPES] + ["affine_relu", "affine_gemm"]
                if n not in text]
     assert not missing, f"the trace names none of {missing}"
+    assert recorded["counts"].get("window_batches") == launches["window_accumulate"], (recorded, launches)
     by_op, spans = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             # a scope's span on the device timeline is no op of its own
-            table = spans if e.name in SCOPES or getattr(e, "is_user_annotation", False) else by_op
+            scope = e.name in SCOPES or e.name in recorded["spans"] or getattr(e, "is_user_annotation", False)
+            table = spans if scope else by_op
             n, ms = table.get(e.name, (0, 0.0))
             table[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     busy = sum(ms for _, ms in by_op.values())
@@ -1005,6 +1014,9 @@ def trace_path(card: str, serve: dict) -> dict:
           f"{busy - conv_ms - k5_ms - k1_ms:.1f} ms; the ten device ops with the most time [{card}]:")
     for name, (n, ms) in sorted(by_op.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"  {ms:9.2f} ms {100 * ms / busy:5.1f} % x{n:<5d} {name[:110]}")
+    print(f"trace: the program's spans (count, host s, self s, syncs), counters {recorded['counts']}:")
+    for name, r in sorted(recorded["spans"].items(), key=lambda kv: -kv[1]["total_s"]):
+        print(f"  {name:<14s} x{r['count']:<4d} {r['total_s']:9.4f} s {r['self_s']:9.4f} s {r['syncs']:4d}")
     return launches
 
 
@@ -2302,19 +2314,16 @@ def train_path(
     calls, the ms/step, the losses, the peak memory and the final model's
     state_dict."""
     from hdenseunet_tpu_torch.train.trainer import train
-    from hdenseunet_tpu_torch.utils.profiling import StepTimer
 
     cfg = train_config(arch, policy, **forms)
     suffix = "".join(f"_{k}-{v}" for k, v in sorted(forms.items()))
     cfg.train.save_path = str(BUILD / "chip_smoke_train" / f"{arch}_{policy}{suffix}")
     batches = global_batches(cfg, TRAIN_STEPS)
-    asked, timer = [], StepTimer()
+    asked = []
 
     def timed():
-        for i, batch in enumerate(batches):
+        for batch in batches:
             asked.append(time.perf_counter())
-            if i:  # steps 2-4, as the ms/step below
-                timer.tick()
             yield batch
 
     history = Path(cfg.train.save_path) / "history" / "lossbatch.txt"
@@ -2326,7 +2335,6 @@ def train_path(
         state = train(cfg, timed(), mesh=mesh, max_steps=TRAIN_STEPS, device="cuda", log_fn=lambda *a: None)
     torch.cuda.synchronize()
     end = time.perf_counter()
-    timer.tick()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in history.read_text().split()]
@@ -2346,8 +2354,7 @@ def train_path(
         f"{shape}: first step {(asked[1] - asked[0]) * 1e3:.1f} ms, {ms:.1f} ms/step over steps "
         f"2-{steps}, {slices / ms * 1e3:.1f} slices/s, peak {peak / 2**30:.2f} GiB, losses "
         f"{[round(v, 5) for v in losses]}, launches {launches} "
-        f"(K1 forward {launches['affine_relu'] // steps}/step); StepTimer.stats over steps 2-{steps} "
-        f"{ {k: round(float(v), 3) for k, v in timer.stats(samples_per_step=slices).items()} } [{card}]"
+        f"(K1 forward {launches['affine_relu'] // steps}/step) [{card}]"
     )
     weights = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
     return dict(launches=launches, calls=calls, ms=ms, losses=losses, peak=peak, weights=weights)

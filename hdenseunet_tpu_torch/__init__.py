@@ -29,7 +29,7 @@ weights  warm-start weights by layer name, the Keras-HDF5 converter, the
          activation-parity dump and compare (``weights.parity``)
 utils    the NaN guard of the training loop, conv FLOP accounting with
          the H100's bf16 peak (``utils.flops``), torch.profiler tracing
-         and step timing (``utils.profiling``)
+         and the program's spans and counters (``utils.profiling``)
 
 The config, NIfTI IO, offline preparation, metrics, host postprocess and
 both native cores are the port's own copies of the JAX package's

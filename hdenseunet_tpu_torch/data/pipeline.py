@@ -9,6 +9,10 @@ workers=3, max_queue_size=10 at train_2ddense.py:209-210):
 * :func:`device_prefetch` — each batch pinned and copied to the card on a
   side CUDA stream, ``depth`` batches ahead of the step that reads it, so
   the host→HBM copy overlaps the previous step's compute.
+
+The consumer's waits on the queue and its pin-and-copy are the program's
+spans ``feed_queue`` and ``feed_put`` (``utils.profiling``); the producer
+thread records nothing.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from collections import deque
 
 import numpy as np
 import torch
+
+from ..utils.profiling import annotate
 
 
 class PrefetchIterator:
@@ -53,7 +59,8 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with annotate("feed_queue"):
+            item = self._q.get()
         if item is self._SENTINEL:
             self._q.put(item)  # every later call ends too
             if self._err is not None:
@@ -109,11 +116,12 @@ def device_prefetch(batch_iterator, device, *, depth: int = 2):
         return tensors
 
     for batch in batch_iterator:
-        host = {k: t.pin_memory() for k, t in _host_tensors(batch).items()}
-        with torch.cuda.stream(copy_stream):
-            tensors = {k: t.to(device, non_blocking=True) for k, t in host.items()}
-            event = torch.cuda.Event()
-            event.record(copy_stream)
+        with annotate("feed_put"):
+            host = {k: t.pin_memory() for k, t in _host_tensors(batch).items()}
+            with torch.cuda.stream(copy_stream):
+                tensors = {k: t.to(device, non_blocking=True) for k, t in host.items()}
+                event = torch.cuda.Event()
+                event.record(copy_stream)
         buf.append((tensors, event))
         if len(buf) >= depth:
             yield ready(*buf.popleft())

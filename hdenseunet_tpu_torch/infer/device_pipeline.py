@@ -20,7 +20,11 @@ Wires: the 2-bit packed labelmask (``wire_bits=2``), the uint8 one
 the CC postprocess on the card (``infer/device_postprocess.py``), dense or
 bbox-cropped (``sparse_wire``). Every path runs the 3D branch in the form
 the config asks for (:func:`forms`): ``layout3d`` and ``stem_s2d``, whose
-shipped default is the space-to-depth stem.
+shipped default is the space-to-depth stem. The host's share of a volume
+is in the program's spans (``utils.profiling``): ``upload``, one
+``window_batch`` a live batch (its gathers, forward and K3a queued) and
+``compose`` (K3b and K4 queued); ``window_batches`` counts the batches and
+``stacks_2d`` the slice stacks of the dedup-2D path's 2D passes.
 
 :class:`TiledVolumeScorer` is the x/y/z-tiled scorer (reference
 predict_window_mulgpu): windows of (tile, tile, input_cols) over the whole
@@ -60,6 +64,7 @@ from ..models import layers as L
 from ..ops import score as K3
 from ..ops.cc import pack2bits
 from ..ops.score import pack_labels  # noqa: F401  (the scorer's threshold, re-exported)
+from ..utils import profiling
 from .device_postprocess import compose_final, compose_packed
 from .sliding_window import window_starts
 
@@ -388,7 +393,9 @@ class DeviceVolumeScorer:
         for s_i, w_i in zip(p["starts"].astype(np.int64), p["weights"]):
             s_i, w_i = s_i[rank * wb : (rank + 1) * wb], w_i[rank * wb : (rank + 1) * wb]
             if w_i.any():
-                K3.window_accumulate(score, count, run(s_i), s_i, w_i, cols=self.cfg.input_cols)
+                profiling.count("window_batches")
+                with profiling.annotate("window_batch"):
+                    K3.window_accumulate(score, count, run(s_i), s_i, w_i, cols=self.cfg.input_cols)
         group = axis_group(self.mesh)
         if group is not None:
             dist.all_reduce(acc, group=group)
@@ -401,14 +408,13 @@ class DeviceVolumeScorer:
         score, count = self._sums(vol_d, p)
         return score / (count[None, None, :, None] + 1e-4)
 
-    @torch.inference_mode()
-    def _finish(self, vol_d, p: dict, out: str, pack_z: int | None = None):
+    def _finish(self, sums, out: str, pack_z: int | None = None):
         """The thresholded labels (uint8 {0, 1, 3}) or their 2-bit wire over
-        the first ``pack_z`` slices, from :meth:`_sums` in one launch
-        (``ops.score.score_finish``, K3b): the average is not written."""
-        score, count = self._sums(vol_d, p)
+        the first ``pack_z`` slices, from :meth:`_sums`'s ``sums`` in one
+        launch (``ops.score.score_finish``, K3b): the average is not
+        written."""
         return K3.score_finish(
-            score, count, self.cfg.thres_liver, self.cfg.thres_tumor, out=out, pack_z=pack_z
+            *sums, self.cfg.thres_liver, self.cfg.thres_tumor, out=out, pack_z=pack_z
         )
 
     def _dedup_batch(self, vol_d, wb: int):
@@ -426,6 +432,7 @@ class DeviceVolumeScorer:
             cur = np.concatenate([c_idx, s_i, s_i + cols - 1])
             nxt = np.concatenate([c_idx + 1, s_i + 1, s_i + cols - 1])
             idx = np.clip(np.stack([prev, cur, nxt], axis=-1), 0, zp - 1)  # (N, 3)
+            profiling.count("stacks_2d", len(idx))
             stacks = vol_d[:, :, torch.from_numpy(idx).to(self.device)]  # (x, y, N, 3)
             feat2d, logits2d = self.model.net2d(stacks.permute(2, 0, 1, 3).contiguous())
             res_w = logits2d[asm].permute(0, 2, 3, 1, 4)  # (wb, x, y, cols, C)
@@ -484,7 +491,8 @@ class DeviceVolumeScorer:
         x0, y0, z_full = vol.shape
         p = self.plan(vol.shape, mini_z, maxi_z)
         if output == "packed":
-            probs = self._finish(self._wire(vol, p), p, "labels")
+            with torch.inference_mode():
+                probs = self._finish(self._sums(self._wire(vol, p), p), "labels")
         else:
             probs = self._score(self._wire(vol, p), p)
         if output == "digest":
@@ -533,14 +541,18 @@ class DeviceVolumeScorer:
         dpp = ext_mask is not None and bool(getattr(self.cfg, "device_postprocess", False))
         sparse = dpp and bool(getattr(self.cfg, "sparse_wire", False))
         p = self.plan(vol.shape, mini_z, maxi_z)
-        ext_bits = self._ext_bits(ext_mask, p, vol.shape) if dpp else None
         with torch.inference_mode():
+            with profiling.annotate("upload"):
+                ext_bits = self._ext_bits(ext_mask, p, vol.shape) if dpp else None
+                vol_d = self._wire(vol, p)
             kind = "wire" if bits == 2 and not dpp else "labels"
-            out = self._finish(self._wire(vol, p), p, kind, pack_z=p["zw"])
-            if sparse:
-                out = compose_final(out, ext_bits, pack_z=p["zw"])
-            elif dpp:
-                out = compose_packed(out, ext_bits, pack_z=p["zw"])
+            sums = self._sums(vol_d, p)
+            with profiling.annotate("compose"):
+                out = self._finish(sums, kind, pack_z=p["zw"])
+                if sparse:
+                    out = compose_final(out, ext_bits, pack_z=p["zw"])
+                elif dpp:
+                    out = compose_packed(out, ext_bits, pack_z=p["zw"])
         return out, dict(
             bits=2 if dpp else bits, sparse=sparse,
             x0=x0, y0=y0, z=p["z"], z_lo=p["z_lo"], z_full=z_full,

@@ -8,8 +8,10 @@ connected-component postprocess runs on the host (``infer/postprocess.py``
 with ``native/postprocess.cpp``) or, with ``InferConfig.device_postprocess``
 and the device-resident scorer, on the device after the scoring
 (``infer/device_postprocess.py``); both give the reference's labelmap byte
-for byte. The stages are named scopes on a ``utils.profiling.trace``
-timeline: scoring (the host's queueing of it), fetch and postprocess.
+for byte. The stages are the program's spans (``utils.profiling``): center,
+mask_extent, scoring (the host's queueing of it; the scorer's upload,
+window_batch and compose inside), fetch and postprocess; scoring and fetch
+carry the volume's sequence number.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ class VolumePredictor:
             device=device,
             mesh=mesh,
         )
+        self.dispatched = 0  # the sequence number of the last volume dispatched
 
     def segment(self, vol: np.ndarray, ext_liver_mask: np.ndarray) -> np.ndarray:
         """(CT volume, external liver mask) -> uint8 labelmap {0 bg,1 liver,2 tumor}."""
@@ -55,23 +58,27 @@ class VolumePredictor:
         queued too, and the handle's kind is "final". The host loop scores
         the volume here and returns its probabilities ("probs")."""
         icfg = self.cfg.infer
-        img = np.asarray(vol, np.float32) - icfg.mean  # test.py:55
-        mask, z_lo, z_hi = postprocess.liver_mask_extent(ext_liver_mask)
-        with annotate("scoring"):
+        self.dispatched += 1
+        seq = str(self.dispatched)
+        with annotate("center"):
+            img = np.asarray(vol, np.float32) - icfg.mean  # test.py:55
+        with annotate("mask_extent"):
+            mask, z_lo, z_hi = postprocess.liver_mask_extent(ext_liver_mask)
+        with annotate("scoring", seq):
             if not icfg.device_resident:
-                return "probs", self.windows.predict_volume(img, z_lo, z_hi), mask
+                return "probs", self.windows.predict_volume(img, z_lo, z_hi), mask, seq
             if icfg.device_postprocess:
-                return "final", self.windows.labelmask_async(img, z_lo, z_hi, ext_mask=mask), None
-            return "packed", self.windows.labelmask_async(img, z_lo, z_hi), mask
+                return "final", self.windows.labelmask_async(img, z_lo, z_hi, ext_mask=mask), None, seq
+            return "packed", self.windows.labelmask_async(img, z_lo, z_hi), mask, seq
 
     def collect(self, handle) -> np.ndarray:
         """Fetch a dispatched volume's labelmask and, unless the device
         postprocessed it, postprocess it on the host."""
-        kind, payload, mask = handle
+        kind, payload, mask, seq = handle
         if kind == "probs":
             with annotate("postprocess"):
                 return _compose(payload, mask, self.cfg.infer)
-        with annotate("fetch"):
+        with annotate("fetch", seq):
             labels = self.windows.labelmask_collect(payload)
         if kind == "final":
             return labels

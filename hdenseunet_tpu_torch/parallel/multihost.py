@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.mesh import batch_sharding
+from ..utils import profiling
 
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
 
@@ -170,7 +171,7 @@ class PinnedFeed:
                         if cuda else self.host)
             self._copied = torch.cuda.Event() if cuda else None
         elif cuda:
-            self._copied.synchronize()
+            profiling.wait(self._copied)
         for k, host in self.host.items():
             slots = host if isinstance(batch, list) else [host]
             for slot, part in zip(slots, parts):

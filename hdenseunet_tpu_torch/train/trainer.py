@@ -11,8 +11,11 @@ Stages (reference recipes):
 
 A step is forward, loss (K2), backward, the SGD update and the BN-state
 merge, all queued on the device without a host sync; ``train`` syncs only
-where it drains the losses, as the JAX loop does. The model, the optimizer
-and the moving statistics are updated in place. ``train`` also takes the
+where it drains the losses, as the JAX loop does. Its phases are the
+program's spans (``utils.profiling``): ``put``, ``forward``, ``backward``,
+``optimizer`` (zero_grad, then the update) and ``bn_merge``; a replayed
+group is one ``replay``. The model, the optimizer and the moving
+statistics are updated in place. ``train`` also takes the
 cross-stage warm start, checkpoints (``train/checkpoint.py``) and resume.
 
 A step repeats itself: the same weights, batch and seed give the same bits
@@ -57,6 +60,7 @@ from ..models import layers as L
 from ..ops import build
 from ..parallel.multihost import PinnedFeed, put_batch
 from ..utils.guards import NaNGuard
+from ..utils.profiling import annotate
 from ..weights.convert import match_to_model
 from . import checkpoint as ckpt_lib
 from .loss import weighted_crossentropy_2d, weighted_crossentropy_hybrid
@@ -156,17 +160,22 @@ def device_step(state: TrainState, batch: dict, seed: torch.Tensor, cfg: Config,
         seed, device=state.device, remat=cfg.train.remat, remat_policy=cfg.train.remat_policy,
         mesh=mesh,
     )
-    state.optimizer.zero_grad(set_to_none=True)
+    with annotate("optimizer"):
+        state.optimizer.zero_grad(set_to_none=True)
     with repeatable():
-        loss = forward_loss(
-            state.model, batch, ctx, arch=state.arch, cfg=cfg, weights=state.loss_weights, mesh=mesh
-        )
-        loss.backward()
-    group = axis_group(mesh)
-    if group is not None:  # one bucket: every rank's share of the gradient, summed
-        all_reduce_([p.grad for p in state.model.parameters() if p.grad is not None], group)
-    state.optimizer.step()
-    with torch.no_grad():  # BN-state merge (module.py:237-242), once per step
+        with annotate("forward"):
+            loss = forward_loss(
+                state.model, batch, ctx, arch=state.arch, cfg=cfg, weights=state.loss_weights,
+                mesh=mesh,
+            )
+        with annotate("backward"):
+            loss.backward()
+    with annotate("optimizer"):
+        group = axis_group(mesh)
+        if group is not None:  # one bucket: every rank's share of the gradient, summed
+            all_reduce_([p.grad for p in state.model.parameters() if p.grad is not None], group)
+        state.optimizer.step()
+    with torch.no_grad(), annotate("bn_merge"):  # BN-state merge (module.py:237-242), once per step
         for bn, (mean, var) in ctx.new_stats.items():
             bn.moving_mean.copy_(mean)
             bn.moving_variance.copy_(var)
@@ -181,8 +190,9 @@ def train_step(state: TrainState, batch: dict, cfg: Config, mesh=None) -> torch.
     the live statistics and the summed gradients are the global batch's,
     the same on every rank."""
     dev = state.device
-    batch = put_batch(batch, dev) if isinstance(batch["image"], np.ndarray) else batch
-    seed = put_batch({"seed": np.array([draw_seed(state)])}, dev)["seed"][0]
+    with annotate("put", str(state.step)):
+        batch = put_batch(batch, dev) if isinstance(batch["image"], np.ndarray) else batch
+        seed = put_batch({"seed": np.array([draw_seed(state)])}, dev)["seed"][0]
     loss = device_step(state, batch, seed, cfg, mesh)
     L.unfreeze_bn_scale(state.model)
     state.step += 1
@@ -228,24 +238,26 @@ class MultiStep:
         a list of K batches); returns their losses as a (K,) device tensor
         without waiting for them."""
         st, k = self.state, self.k
-        seeds = np.array([draw_seed(st) for _ in range(k)], dtype=np.int64)
-        if st.device.type != "cuda" or self.calls == 0:
+        eager = st.device.type != "cuda" or self.calls == 0
+        if not eager and self.graph is None:
+            self._capture(stacked)
+        with annotate("put", str(st.step)):
+            seeds = np.array([draw_seed(st) for _ in range(k)], dtype=np.int64)
             group = self._put(stacked, seeds)
+        if eager:
             losses = torch.stack([
                 device_step(st, {"image": group["image"][i], "label": group["label"][i]},
                             group["seed"][i], self.cfg, self.mesh)
                 for i in range(k)
             ])
         else:
-            if self.graph is None:
-                self._capture(stacked)
-            group = self._put(stacked, seeds)
-            for i in range(k):
-                for key, t in self._inputs.items():
-                    t.copy_(group[key][i])
-                self.graph.replay()
-                self._losses[i].copy_(self._loss)
-            losses = self._losses.clone()
+            with annotate("replay"):
+                for i in range(k):
+                    for key, t in self._inputs.items():
+                        t.copy_(group[key][i])
+                    self.graph.replay()
+                    self._losses[i].copy_(self._loss)
+                losses = self._losses.clone()
             self.replays += k
         self.calls += 1
         L.unfreeze_bn_scale(st.model)

@@ -1,0 +1,11 @@
+"""Host-blocking CUDA synchronisations a step makes inside the program's
+spans (``PinnedFeed.put``'s wait on the last call's copy), over the traced
+steps."""
+from hdu_bench import recorder
+
+UNIT = "syncs/step"
+MOVES = "train_ms_per_step.graphed"
+
+
+def read(run):
+    return recorder.syncs_per_unit(run, MOVES)

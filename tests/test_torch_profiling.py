@@ -1,17 +1,19 @@
-"""The port's tracing and timing tools on the CPU: ``utils/profiling.py``
-against the JAX package's, the serving stages' scopes on a trace, and the
-scorer's timing helpers (``compute_timer``, ``compute_seconds``)."""
+"""The port's tracing and timing tools on the CPU: ``utils/profiling.py``'s
+spans and counters, the serving and training stages' spans on a trace, and
+the scorer's timing helpers (``compute_timer``, ``compute_seconds``)."""
 import dataclasses
-import itertools
 import json
+import threading
+import types
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
-from hdenseunet_tpu.utils import profiling as JP
 from hdenseunet_tpu_torch.core.config import Config, InferConfig
 from hdenseunet_tpu_torch.core.initializers import init_model
+from hdenseunet_tpu_torch.infer import postprocess
 from hdenseunet_tpu_torch.infer.device_pipeline import DeviceVolumeScorer
 from hdenseunet_tpu_torch.infer.predictor import VolumePredictor
 from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
@@ -39,9 +41,15 @@ def test_trace_names_an_annotated_scope(tmp_path):
     assert any(e.name == "unit-test-region" for e in prof.events())
 
 
-def test_segment_trace_names_the_serving_stages(tmp_path):
-    """One VolumePredictor.segment inside a trace: scoring, fetch and the
-    host postprocess appear as scopes, around the model's operators."""
+SERVING_SPANS = ("center", "mask_extent", "scoring", "upload", "window_batch", "compose", "fetch",
+                 "postprocess")
+
+
+def _segmented(tmp_path):
+    """One VolumePredictor.segment of a tiny volume inside a CPU trace:
+    (predictor, labelmap, snapshot, trace text, K3a's launches in it)."""
+    from hdenseunet_tpu_torch.ops import score
+
     cfg = Config()
     cfg.model.preset = "tiny"
     cfg.infer = InferConfig(window_batch=2)
@@ -50,46 +58,163 @@ def test_segment_trace_names_the_serving_stages(tmp_path):
     vol = rng.integers(-200, 251, (32, 32, 24)).astype(np.float32)
     ext = np.zeros(vol.shape, np.int16)
     ext[8:24, 8:24, 6:18] = 1
-    with TP.trace(tmp_path, device="cpu"):
-        lab = predictor.segment(vol, ext)
-    assert lab.shape == vol.shape
-    text = _trace_text(tmp_path)
-    for scope in ("scoring", "fetch", "postprocess", "aten::convolution"):
+    before = score.window_accumulate.launches
+    out = {}
+    snap, text = _spans(tmp_path, lambda: out.update(lab=predictor.segment(vol, ext)))
+    assert out["lab"].shape == vol.shape
+    return predictor, vol, ext, snap, text, score.window_accumulate.launches - before
+
+
+def test_segment_trace_names_the_serving_stages(tmp_path):
+    """One VolumePredictor.segment inside a trace: the predictor's and the
+    scorer's spans appear as scopes, around the model's operators, and
+    each records once a volume but the window batches."""
+    _, _, _, snap, text, _ = _segmented(tmp_path)
+    for scope in SERVING_SPANS + ("aten::convolution",):
         assert f'"{scope}"' in text, scope
+    assert {name: s["count"] for name, s in snap["spans"].items() if name != "window_batch"} == {
+        name: 1 for name in SERVING_SPANS if name != "window_batch"}
+    inner = sum(snap["spans"][n]["total_s"] for n in ("upload", "window_batch", "compose"))
+    assert snap["spans"]["scoring"]["self_s"] == pytest.approx(snap["spans"]["scoring"]["total_s"] - inner)
 
 
-@pytest.mark.parametrize("window", [200, 3])
-def test_step_timer_matches_jax(window, monkeypatch):
-    """Under one patched clock both timers give the same statistics; JAX
-    divides the per-chip rate by jax.device_count() (8 on the tests' virtual
-    CPU mesh), the port's step runs on one device."""
-    import jax
-
-    ticks = [0.0, 0.1, 0.25, 0.31, 0.52, 0.60, 0.95, 1.0]
-    monkeypatch.setattr(JP.time, "perf_counter", iter(ticks).__next__)
-    want = JP.StepTimer(window=window)
-    for _ in ticks:
-        want.tick()
-    monkeypatch.setattr(TP.time, "perf_counter", iter(ticks).__next__)
-    got = TP.StepTimer(window=window)
-    for _ in ticks:
-        got.tick()
-    n_dev = jax.device_count()
-    a, b = want.stats(samples_per_step=8), got.stats(samples_per_step=8)
-    assert a.keys() == b.keys()
-    for key in ("steps_per_sec", "p50_ms", "p95_ms"):
-        assert b[key] == pytest.approx(a[key], rel=1e-12), key
-    assert n_dev == 8
-    assert b["samples_per_sec_per_chip"] == pytest.approx(a["samples_per_sec_per_chip"] * n_dev, rel=1e-12)
+def test_segment_counts_batches_and_stacks(tmp_path):
+    """``window_batches`` is K3a's launches (the card's) or the plan's live
+    batches (the CPU runs K3a's plain version, uncounted); ``stacks_2d`` the
+    dedup batches' 2D stacks."""
+    predictor, vol, ext, snap, _, launched = _segmented(tmp_path)
+    _, z_lo, z_hi = postprocess.liver_mask_extent(ext)
+    plan = predictor.windows.plan(vol.shape, z_lo, z_hi)
+    live = int(plan["weights"].any(axis=1).sum())
+    wb, cols, stride = plan["wb"], predictor.cfg.infer.input_cols, predictor.cfg.infer.window_stride
+    assert plan["dedup"] and live > 1
+    assert snap["counts"] == {"window_batches": launched or live,
+                              "stacks_2d": live * ((wb - 1) * stride + cols - 2 + 2 * wb)}
+    assert snap["spans"]["window_batch"]["count"] == live
 
 
-def test_step_timer_empty_and_rolling(monkeypatch):
-    t = TP.StepTimer(window=2)
-    assert t.stats() == {}
-    monkeypatch.setattr(TP.time, "perf_counter", itertools.count(0.0, 0.5).__next__)
-    for _ in range(5):
-        t.tick()
-    assert t._times == [0.5, 0.5] and t.stats()["p50_ms"] == pytest.approx(500.0)
+def _spans(tmp_path, fn):
+    """``fn()`` inside a CPU trace, from a cleared recorder; returns the
+    recorder's snapshot and the trace's text."""
+    TP.reset()
+    with TP.trace(tmp_path, device="cpu"):
+        fn()
+    return TP.snapshot(), _trace_text(tmp_path)
+
+
+def test_no_profiler_no_record(monkeypatch):
+    """With no profiler open a span opens no profiler scope, reads no clock
+    and records nothing; nor does a counter."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("called with no profiler open")
+
+    TP.reset()
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(TP, "time", types.SimpleNamespace(perf_counter=refuse))
+    with TP.annotate("scoring", "1"), TP.annotate("window_batch"):
+        TP.count("window_batches")
+    assert TP.snapshot() == {"spans": {}, "counts": {}}
+
+
+def test_nested_spans_count_total_and_self(tmp_path, monkeypatch):
+    """outer [0, 10] holds inner [1, 3] and inner [4, 5]: self seconds are
+    the total less what the children cover."""
+    ticks = iter([0.0, 1.0, 3.0, 4.0, 5.0, 10.0])
+    monkeypatch.setattr(TP, "time", types.SimpleNamespace(perf_counter=lambda: next(ticks)))
+
+    def nested():
+        with TP.annotate("outer"):
+            with TP.annotate("inner"):
+                pass
+            with TP.annotate("inner", "2"):
+                pass
+
+    snap, text = _spans(tmp_path, nested)
+    assert snap["spans"] == {
+        "outer": dict(count=1, total_s=10.0, self_s=7.0, syncs=0),
+        "inner": dict(count=2, total_s=3.0, self_s=3.0, syncs=0),
+    }
+    assert '"outer"' in text and '"inner"' in text
+
+
+def test_spans_in_two_threads_do_not_nest(tmp_path):
+    """A span another thread opens and closes inside this thread's span is
+    no child of it."""
+    opened, closed = threading.Event(), threading.Event()
+
+    def other():
+        opened.wait(30)
+        with TP.annotate("other"):
+            pass
+        closed.set()
+
+    def mine():
+        worker = threading.Thread(target=other)
+        worker.start()
+        with TP.annotate("mine"):
+            opened.set()
+            assert closed.wait(30)
+        worker.join(30)
+        assert not worker.is_alive()
+
+    snap, _ = _spans(tmp_path, mine)
+    assert snap["spans"]["mine"]["self_s"] == snap["spans"]["mine"]["total_s"] > 0
+    assert snap["spans"]["other"]["count"] == 1
+
+
+def test_count_and_reset(tmp_path):
+    def counted():
+        TP.count("stacks_2d", 20)
+        TP.count("window_batches", 3)
+        TP.count("window_batches")
+        with TP.annotate("center"):
+            pass
+
+    snap, _ = _spans(tmp_path, counted)
+    assert snap["counts"] == {"stacks_2d": 20, "window_batches": 4}
+    assert snap["spans"]["center"]["count"] == 1
+    TP.reset()
+    assert TP.snapshot() == {"spans": {}, "counts": {}}
+
+
+def test_syncs_go_to_the_innermost_span_unprinted(tmp_path):
+    """c10's sync warning inside a span counts as a sync of the innermost
+    span and is not shown; another warning is; an event wait counts once;
+    the warning filters are restored when the last span closes."""
+    waited = []
+
+    class Event:
+        def synchronize(self):
+            waited.append(1)
+
+    def synced():
+        with warnings.catch_warnings(record=True) as shown:
+            warnings.simplefilter("always")
+            filters, show = list(warnings.filters), warnings.showwarning
+            with TP.annotate("scoring"):
+                warnings.warn(TP.SYNC_WARNING)
+                with TP.annotate("upload"):
+                    warnings.warn(TP.SYNC_WARNING)
+                    warnings.warn(TP.SYNC_WARNING)
+                    warnings.warn("another warning")
+                    TP.wait(Event())
+            assert warnings.filters == filters and warnings.showwarning is show
+            warnings.warn(TP.SYNC_WARNING)  # no span open: shown, not counted
+        assert [str(w.message) for w in shown] == ["another warning", TP.SYNC_WARNING]
+
+    snap, _ = _spans(tmp_path, synced)
+    assert {k: v["syncs"] for k, v in snap["spans"].items()} == {"scoring": 1, "upload": 3}
+    assert waited == [1]
+
+
+def test_feed_queue_span(tmp_path):
+    from hdenseunet_tpu_torch.data.pipeline import PrefetchIterator
+
+    feed = PrefetchIterator(iter(range(3)), depth=2)
+    snap, text = _spans(tmp_path, lambda: [next(feed) for _ in range(3)])
+    feed.close()
+    assert snap["spans"]["feed_queue"]["count"] == 3 and '"feed_queue"' in text
 
 
 MODES = {"dedup-2D": {}, "per-window": dict(dedup_2d=False), "shared-2D": dict(shared_2d=True)}
@@ -138,3 +263,28 @@ def test_compute_seconds_is_the_slope(tiny_model, monkeypatch):
     assert calls == [1, 3, 1, 1, 3, 3]
     assert d["t_small"] == [0.78, 0.79] and d["t_big"] == [pytest.approx(1.80), pytest.approx(1.81)]
     assert d["seconds"] == pytest.approx(0.51)
+
+
+def test_train_step_and_multistep_spans(tmp_path):
+    """One train_step and one MultiStep call of K = 2 on the CPU: put once
+    a call, forward, backward and bn_merge once a step, optimizer twice
+    (zero_grad, then the update); the CPU replays no graph."""
+    from hdenseunet_tpu_torch.data.sampler import synthetic_batches
+    from hdenseunet_tpu_torch.train import trainer as T
+
+    cfg = Config()
+    cfg.model.preset, cfg.model.input_size = "tiny", 32
+    cfg.train.arch, cfg.train.batch = "2d", 2
+    state = T.create_train_state(cfg, "2d", device="cpu", seed=0)
+    gen = synthetic_batches(mode="2d", batch=2, input_size=32, input_cols=8, seed=0)
+    batches = [next(gen) for _ in range(3)]
+    multi = T.make_multi_step(state, cfg, k=2)
+    losses = []
+    snap, text = _spans(tmp_path, lambda: losses.extend(
+        [T.train_step(state, batches[0], cfg), multi(batches[1:])]))
+    assert all(torch.isfinite(v).all() for v in losses)
+    assert {name: s["count"] for name, s in snap["spans"].items()} == dict(
+        put=2, forward=3, backward=3, optimizer=6, bn_merge=3)
+    assert snap["counts"] == {}  # training keeps no counter
+    for scope in ("put", "forward", "backward", "optimizer", "bn_merge"):
+        assert f'"{scope}"' in text, scope
