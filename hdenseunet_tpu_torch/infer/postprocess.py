@@ -25,6 +25,7 @@ import numpy as np
 from scipy import ndimage
 
 from .. import native
+from ..utils.profiling import count
 
 
 def _use_native(mask: np.ndarray) -> bool:
@@ -33,7 +34,7 @@ def _use_native(mask: np.ndarray) -> bool:
     iterated dilation (O(N x diameter)) and measured 38-64 s per 512x512x192
     volume on the 1-core host — the pipelined serving floor (BENCH_NOTES.md
     "Round-5 serving-path attribution"); the native passes are O(N) and
-    byte-exact (tests/test_native_postprocess.py). Set
+    byte-exact (tests/test_torch_native_postprocess.py). Set
     ``HDENSEUNET_HOST_POSTPROCESS=scipy`` to force the scipy path."""
     return (
         mask.ndim == 3
@@ -110,11 +111,32 @@ def compose_from_masks(
 
 def liver_mask_extent(mask: np.ndarray):
     """External mask -> (dilated mask, z_min, z_max) (reference test.py:58-63:
-    binarize label-2 into the mask, dilate once, take index extent)."""
-    m = mask.copy()
-    m[m == 2] = 1
-    m = dilate(m.astype(bool))
-    idx = np.argwhere(m)
-    if idx.size == 0:
+    binarize label-2 into the mask, dilate once, take index extent).
+
+    Any nonzero label is set, so label 2 needs no rewrite. The native core
+    dilates over the mask's nonzero bounding box grown by one voxel, zeros
+    outside it; that box is the dilation's own, so its z range is the
+    extent. The counter ``mask_box_voxels`` adds the box's voxels. An empty
+    mask gives (all False, 0, Z - 1)."""
+    if _use_native(mask):
+        m, box = native.pp_dilate_extent(mask)
+    else:
+        m = dilate(mask != 0)
+        box = _nonzero_box(m)
+    x0, x1, y0, y1, z0, z1 = box
+    count("mask_box_voxels", (x1 - x0) * (y1 - y0) * (z1 - z0))
+    if z1 == 0:
         return m, 0, mask.shape[2] - 1
-    return m, int(idx[:, 2].min()), int(idx[:, 2].max())
+    return m, z0, z1 - 1
+
+
+def _nonzero_box(m: np.ndarray):
+    """A 3D mask's nonzero bounding box (x0, x1, y0, y1, z0, z1), half-open,
+    from its projections; all zeros when the mask is empty."""
+    box = []
+    for axis in range(3):
+        nz = np.flatnonzero(m.any(axis=tuple(a for a in range(3) if a != axis)))
+        if nz.size == 0:
+            return (0,) * 6
+        box += [int(nz[0]), int(nz[-1]) + 1]
+    return tuple(box)

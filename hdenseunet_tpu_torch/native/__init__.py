@@ -10,10 +10,12 @@ reference leaves to python libraries:
   (test.py:70-115) as O(N) passes, byte-exact against the scipy twins in
   ``infer/postprocess.py``.
 
-Both sources are copies of the JAX package's. Each is compiled with ``g++``
-into ``build/native/`` at the root of the checkout, named by a hash of the
-source, apart from the JAX package's cache. ctypes releases the GIL for the
-length of each call, so crop threads run in parallel.
+Both sources are copies of the JAX package's, except that the port's
+dilation, ``pp_dilate_extent``, runs over the mask's grown bounding box
+(the tests hold its output to scipy's and the original's). Each is compiled
+with ``g++`` into ``build/native/`` at the root of the checkout, named by a
+hash of the source, apart from the JAX package's cache. ctypes releases the
+GIL for the length of each call, so crop threads run in parallel.
 
 Without a toolchain ``available()`` / ``pp_available()`` are False. The
 postprocess then takes its scipy path; the sampler has no other route to
@@ -131,9 +133,12 @@ def _pp_load():
     lib = ctypes.CDLL(str(so))
     L = ctypes.c_long
     PU8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-    for fn in ("pp_largest_component", "pp_fill_holes", "pp_dilate"):
+    for fn in ("pp_largest_component", "pp_fill_holes"):
         getattr(lib, fn).argtypes = [PU8, L, L, L, PU8]
         getattr(lib, fn).restype = None
+    PL = np.ctypeslib.ndpointer(ctypes.c_long, shape=(6,), flags="C_CONTIGUOUS")
+    lib.pp_dilate_extent.argtypes = [PU8, L, L, L, PU8, PL]
+    lib.pp_dilate_extent.restype = None
     return lib
 
 
@@ -141,26 +146,52 @@ def pp_available() -> bool:
     return _pp_load() is not None
 
 
+def _mask_bytes(mask) -> np.ndarray:
+    """A 3D mask as the C-contiguous uint8 bytes the core reads (any nonzero
+    byte is set): a bool or uint8 mask's own memory where it is already
+    C-contiguous, else a copy."""
+    m = np.asarray(mask)
+    if m.dtype != np.bool_ and m.dtype != np.uint8:
+        m = m != 0
+    m = np.ascontiguousarray(m)
+    if m.ndim != 3:
+        raise ValueError(f"the native postprocess takes (X, Y, Z) masks, not {m.shape}")
+    return m.view(np.uint8)
+
+
 def _pp_call(fn_name: str, mask) -> np.ndarray:
     lib = _pp_load()
     assert lib is not None, "native postprocess unavailable"
-    m = np.ascontiguousarray(mask != 0, dtype=np.uint8)
-    assert m.ndim == 3, m.shape
-    out = np.empty_like(m)
-    getattr(lib, fn_name)(m, *m.shape, out)
+    m = _mask_bytes(mask)
+    out = np.empty(m.shape, bool)  # the core writes 0/1 into its bytes
+    getattr(lib, fn_name)(m, *m.shape, out.view(np.uint8))
     return out
 
 
 def pp_largest_component(mask):
     """Largest 26-connected component (bool). Exact scipy label+argmax twin."""
-    return _pp_call("pp_largest_component", mask).astype(bool)
+    return _pp_call("pp_largest_component", mask)
 
 
 def pp_fill_holes(mask):
     """binary_fill_holes twin: 6-conn border flood on the complement."""
-    return _pp_call("pp_fill_holes", mask).astype(bool)
+    return _pp_call("pp_fill_holes", mask)
+
+
+def pp_dilate_extent(mask):
+    """binary_dilation(iterations=1) twin, computed over the mask's nonzero
+    bounding box grown by one voxel: (the bool dilation, that box as
+    (x0, x1, y0, y1, z0, z1) half-open, all zeros for an empty mask). The
+    box is the dilation's nonzero box, so its z range is the z extent."""
+    lib = _pp_load()
+    assert lib is not None, "native postprocess unavailable"
+    m = _mask_bytes(mask)
+    out = np.zeros(m.shape, bool)  # untouched pages stay unallocated
+    box = np.zeros(6, ctypes.c_long)
+    lib.pp_dilate_extent(m, *m.shape, out.view(np.uint8), box)
+    return out, tuple(int(v) for v in box)
 
 
 def pp_dilate(mask):
     """binary_dilation(iterations=1) twin: one 6-conn cross dilation."""
-    return _pp_call("pp_dilate", mask).astype(bool)
+    return pp_dilate_extent(mask)[0]

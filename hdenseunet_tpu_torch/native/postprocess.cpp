@@ -23,8 +23,8 @@
 //    picking (max size, then min root) reproduces the tie-break.
 //  * fill_holes: binary_fill_holes default structure = 6-conn; holes are
 //    complement voxels not 6-connected to the array border.
-//  * binary_dilate: binary_dilation(iterations=1) default structure = 6-conn
-//    cross (center included).
+//  * dilate_extent: binary_dilation(iterations=1) default structure = 6-conn
+//    cross (center included), computed over the mask's grown bounding box.
 
 #include <cstdint>
 #include <cstring>
@@ -160,22 +160,60 @@ void pp_fill_holes(const uint8_t* mask, long X, long Y, long Z, uint8_t* out) {
 }
 
 // out := one 6-conn dilation of mask (binary_dilation default structure,
-// iterations=1; structure includes the center).
-void pp_dilate(const uint8_t* mask, long X, long Y, long Z, uint8_t* out) {
-  const int64_t sx = (int64_t)Y * Z, sy = Z;
+// iterations=1; structure includes the center; any nonzero byte is set) as
+// 0/1 bytes, and box := the dilation's bounding box [x0, x1, y0, y1, z0,
+// z1), half-open: the mask's nonzero box grown by one voxel, clipped to the
+// volume. One read of the mask finds the box; the dilation then runs over
+// the box alone, and out must hold zeros outside it on entry (the caller
+// passes zeroed memory). A 6-conn dilation grows the nonzero z range by one
+// slice at each end, so [z0, z1) is also the dilated mask's z extent. An
+// empty mask leaves out and box all zero.
+void pp_dilate_extent(const uint8_t* __restrict__ mask, long X, long Y, long Z,
+                      uint8_t* __restrict__ out, long* box) {
+  long xlo = X, xhi = -1, ylo = Y, yhi = -1, zlo = Z, zhi = -1;
   for (long x = 0; x < X; ++x)
     for (long y = 0; y < Y; ++y) {
-      const int64_t base = (int64_t)x * sx + (int64_t)y * sy;
-      for (long z = 0; z < Z; ++z) {
-        const int64_t i = base + z;
-        uint8_t v = mask[i];
-        if (!v && x > 0) v = mask[i - sx];
-        if (!v && x < X - 1) v = mask[i + sx];
-        if (!v && y > 0) v = mask[i - sy];
-        if (!v && y < Y - 1) v = mask[i + sy];
-        if (!v && z > 0) v = mask[i - 1];
-        if (!v && z < Z - 1) v = mask[i + 1];
-        out[i] = v ? 1 : 0;
+      const uint8_t* row = mask + ((int64_t)x * Y + y) * Z;
+      uint8_t any = 0;
+      for (long z = 0; z < Z; ++z) any |= row[z];
+      if (!any) continue;
+      if (x < xlo) xlo = x;
+      xhi = x;
+      if (y < ylo) ylo = y;
+      if (y > yhi) yhi = y;
+      long z = 0;  // scans only below the lowest z found so far
+      while (z < zlo && !row[z]) ++z;
+      zlo = z < zlo ? z : zlo;
+      z = Z - 1;  // and above the highest
+      while (z > zhi && !row[z]) --z;
+      zhi = z > zhi ? z : zhi;
+    }
+  for (int i = 0; i < 6; ++i) box[i] = 0;
+  if (xhi < 0) return;
+  const long x0 = xlo > 0 ? xlo - 1 : 0, x1 = xhi + 2 < X ? xhi + 2 : X;
+  const long y0 = ylo > 0 ? ylo - 1 : 0, y1 = yhi + 2 < Y ? yhi + 2 : Y;
+  const long z0 = zlo > 0 ? zlo - 1 : 0, z1 = zhi + 2 < Z ? zhi + 2 : Z;
+  box[0] = x0, box[1] = x1, box[2] = y0, box[3] = y1, box[4] = z0, box[5] = z1;
+
+  // A missing x or y neighbour row reads as zeros; the z ends are done once
+  // a row, so the inner loop is branch-free.
+  const std::vector<uint8_t> zero((size_t)Z, 0);
+  const long za = z0 > 0 ? z0 : 1, zb = z1 < Z ? z1 : Z - 1;
+  for (long x = x0; x < x1; ++x)
+    for (long y = y0; y < y1; ++y) {
+      const int64_t base = ((int64_t)x * Y + y) * Z;
+      const uint8_t* __restrict__ c = mask + base;
+      const uint8_t* __restrict__ xm = x > 0 ? c - (int64_t)Y * Z : zero.data();
+      const uint8_t* __restrict__ xp = x < X - 1 ? c + (int64_t)Y * Z : zero.data();
+      const uint8_t* __restrict__ ym = y > 0 ? c - Z : zero.data();
+      const uint8_t* __restrict__ yp = y < Y - 1 ? c + Z : zero.data();
+      uint8_t* __restrict__ o = out + base;
+      for (long z = za; z < zb; ++z)
+        o[z] = (c[z - 1] | c[z] | c[z + 1] | xm[z] | xp[z] | ym[z] | yp[z]) != 0;
+      for (long z : {z0, z1 - 1}) {  // the box's z ends, where z +- 1 may leave the volume
+        if (z >= za && z < zb) continue;
+        const uint8_t lo = z > 0 ? c[z - 1] : 0, hi = z < Z - 1 ? c[z + 1] : 0;
+        o[z] = (lo | c[z] | hi | xm[z] | xp[z] | ym[z] | yp[z]) != 0;
       }
     }
 }

@@ -87,8 +87,21 @@ def test_postprocess_byte_identical_to_the_original(route, seed):
     assert got.tobytes() == want.tobytes()
 
 
+def _c_function(src: str, name: str) -> str:
+    """The text of the C function ``name`` in ``src``, from its signature to
+    its closing brace at the start of a line."""
+    start = src.index(f"void {name}(")
+    return src[start : src.index("\n}\n", start) + 3]
+
+
 def test_native_build_is_apart_from_the_jax_packages():
-    assert t_native._PP_SRC.read_bytes() == Path(j_native._PP_SRC).read_bytes()
+    """The port's core keeps the original's labelling and hole fill as they
+    are; its dilation, ``pp_dilate_extent``, runs over the mask's grown
+    bounding box, and the tests hold its output to scipy and the original."""
+    port, orig = t_native._PP_SRC.read_text(), Path(j_native._PP_SRC).read_text()
+    for name in ("pp_largest_component", "pp_fill_holes"):
+        assert _c_function(port, name) == _c_function(orig, name), name
+    assert "void pp_dilate(" not in port and "void pp_dilate_extent(" in port
     so = t_native._build(t_native._PP_SRC, "postprocess")
     assert so is not None and so.parent == t_native.BUILD_DIR
     assert so.parent.parent == REPO / "build"

@@ -78,10 +78,21 @@ def test_segment_trace_names_the_serving_stages(tmp_path):
     assert snap["spans"]["scoring"]["self_s"] == pytest.approx(snap["spans"]["scoring"]["total_s"] - inner)
 
 
+def _grown_box_voxels(mask) -> int:
+    """Voxels of the mask's nonzero bounding box grown by one voxel, clipped
+    to the volume; 0 for an empty mask."""
+    nz = np.nonzero(mask)
+    if nz[0].size == 0:
+        return 0
+    return int(np.prod([min(int(i.max()) + 2, n) - max(int(i.min()) - 1, 0)
+                        for i, n in zip(nz, mask.shape)]))
+
+
 def test_segment_counts_batches_and_stacks(tmp_path):
     """``window_batches`` is K3a's launches (the card's) or the plan's live
     batches (the CPU runs K3a's plain version, uncounted); ``stacks_2d`` the
-    dedup batches' 2D stacks."""
+    dedup batches' 2D stacks; ``mask_box_voxels`` the mask extent's grown
+    box."""
     predictor, vol, ext, snap, _, launched = _segmented(tmp_path)
     _, z_lo, z_hi = postprocess.liver_mask_extent(ext)
     plan = predictor.windows.plan(vol.shape, z_lo, z_hi)
@@ -89,8 +100,32 @@ def test_segment_counts_batches_and_stacks(tmp_path):
     wb, cols, stride = plan["wb"], predictor.cfg.infer.input_cols, predictor.cfg.infer.window_stride
     assert plan["dedup"] and live > 1
     assert snap["counts"] == {"window_batches": launched or live,
-                              "stacks_2d": live * ((wb - 1) * stride + cols - 2 + 2 * wb)}
+                              "stacks_2d": live * ((wb - 1) * stride + cols - 2 + 2 * wb),
+                              "mask_box_voxels": _grown_box_voxels(ext)}
     assert snap["spans"]["window_batch"]["count"] == live
+
+
+@pytest.mark.parametrize("route", ["native", "scipy"])
+@pytest.mark.parametrize("case", ["inside", "on_faces", "empty"])
+def test_mask_extent_counts_its_box(tmp_path, monkeypatch, route, case):
+    """A profiled ``liver_mask_extent`` counts ``mask_box_voxels``: the
+    voxels of the mask's nonzero box grown by one voxel, clipped to the
+    volume, on the native core and on the scipy fallback."""
+    from hdenseunet_tpu_torch import native
+
+    if route == "scipy":
+        monkeypatch.setattr(native, "pp_available", lambda: False)
+    ext = np.zeros((20, 22, 24), np.uint8)
+    if case == "inside":
+        ext[5:12, 6:15, 7:19] = 1
+        ext[8, 9, 10] = 2
+    elif case == "on_faces":
+        ext[0:4, 10:22, 20:24] = 2
+    snap, _ = _spans(tmp_path, lambda: postprocess.liver_mask_extent(ext))
+    want = {"inside": 9 * 11 * 14, "on_faces": 5 * 13 * 5, "empty": 0}[case]
+    assert want == _grown_box_voxels(ext)
+    assert snap["counts"] == {"mask_box_voxels": want}
+    assert snap["spans"] == {}
 
 
 def _spans(tmp_path, fn):
