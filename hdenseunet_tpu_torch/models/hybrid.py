@@ -8,17 +8,30 @@ Both hybrid archs freeze every 2D BN and train the 3D branch's and the
 head's with live statistics; the archs differ in the head's dropout rate
 (0.3 end2end, 0.1 3dpart; the identity at inference) and in which leaves
 train (:func:`trainable_predicate`, applied by train/optimizer.py).
+
+A training forward (``ctx`` given) records the program's spans
+(``utils/profiling.py``): ``branch2d`` (the slice stacks, the 2D branch and
+the unstack), ``branch3d`` (the x250 fusion and the 3D DenseUNet) and
+``hff`` (the head). An inference forward records none.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
 
+from ..utils.profiling import annotate
 from . import denseunet2d, denseunet3d
 from . import layers as L
 
 LOGIT_AMPLIFICATION = 250.0  # reference hybridnet.py:409
 HEAD_WIDTH = 64
+
+
+def _span(ctx: L.Ctx | None, name: str):
+    """The program's span ``name`` in a training forward; none at inference."""
+    return contextlib.nullcontext() if ctx is None else annotate(name)
 
 
 def stack_adjacent_slices(vol):
@@ -102,10 +115,11 @@ class HDenseUNet(nn.Module):
         form of the 3D branch and the head (models/denseunet3d.py)."""
         assert arch in ("end2end", "3dpart"), arch
         b, _, _, d = vol.shape[:4]
-        feat2d, logits2d = self.net2d(
-            stack_adjacent_slices(vol), ctx, bn_frozen=True, decoder_dropout=0.0
-        )
-        res2d, fea2d = unstack_to_volume(logits2d, b, d), unstack_to_volume(feat2d, b, d)
+        with _span(ctx, "branch2d"):
+            feat2d, logits2d = self.net2d(
+                stack_adjacent_slices(vol), ctx, bn_frozen=True, decoder_dropout=0.0
+            )
+            res2d, fea2d = unstack_to_volume(logits2d, b, d), unstack_to_volume(feat2d, b, d)
         if taps is not None:
             taps.update(res2d=res2d, fea2d=fea2d)
         return self.fuse(
@@ -123,12 +137,15 @@ class HDenseUNet(nn.Module):
         vol (B,H,W,D,1), res2d (B,H,W,D,C) 2D logits, fea2d (B,H,W,D,F) 2D
         features -> logits (B,H,W,D,C); ``taps`` gets feat3d and the logits.
         Under 'dhwc' the 3D branch hands its features to the head d-major."""
-        input3d = torch.cat([vol, res2d * LOGIT_AMPLIFICATION], dim=-1)
         dhwc = layout3d == "dhwc"
-        feat3d, _ = self.net3d(
-            input3d, ctx, layout=layout3d, stem_s2d=stem_s2d, fold_z=fold_z, unfold_outputs=not dhwc
-        )
-        logits = self.head(feat3d, fea2d, ctx, arch=arch, layout=layout3d, fold_z=fold_z)
+        with _span(ctx, "branch3d"):
+            input3d = torch.cat([vol, res2d * LOGIT_AMPLIFICATION], dim=-1)
+            feat3d, _ = self.net3d(
+                input3d, ctx, layout=layout3d, stem_s2d=stem_s2d, fold_z=fold_z,
+                unfold_outputs=not dhwc,
+            )
+        with _span(ctx, "hff"):
+            logits = self.head(feat3d, fea2d, ctx, arch=arch, layout=layout3d, fold_z=fold_z)
         if taps is not None:
             if dhwc:
                 feat3d = feat3d.permute(0, 2, 3, 1, 4)

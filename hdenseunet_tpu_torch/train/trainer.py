@@ -14,9 +14,11 @@ merge, all queued on the device without a host sync; ``train`` syncs only
 where it drains the losses, as the JAX loop does. Its phases are the
 program's spans (``utils.profiling``): ``put``, ``forward``, ``backward``,
 ``optimizer`` (zero_grad, then the update) and ``bn_merge``; a replayed
-group is one ``replay``. The model, the optimizer and the moving
-statistics are updated in place. ``train`` also takes the
-cross-stage warm start, checkpoints (``train/checkpoint.py``) and resume.
+group is one ``replay``. Inside ``forward`` the hybrid stages record
+``branch2d``, ``branch3d``, ``hff`` (``models/hybrid.py``) and ``loss``.
+The model, the optimizer and the moving statistics are updated in place.
+``train`` also takes the cross-stage warm start, checkpoints
+(``train/checkpoint.py``) and resume.
 
 A step repeats itself: the same weights, batch and seed give the same bits
 (cuDNN restricted to its deterministic algorithms, :func:`repeatable`; the
@@ -125,11 +127,12 @@ def forward_loss(
     logits = model(
         image, ctx, arch=arch, layout3d=cfg.model.layout3d, stem_s2d=cfg.model.stem_s2d
     )
-    if cfg.train.mask_boundary_slices:
-        return weighted_crossentropy_hybrid(logits, batch["label"], weights, mesh)
-    return weighted_crossentropy_2d(
-        logits.reshape(-1, logits.shape[-1]), batch["label"].reshape(-1), weights, mesh
-    )
+    with annotate("loss"):
+        if cfg.train.mask_boundary_slices:
+            return weighted_crossentropy_hybrid(logits, batch["label"], weights, mesh)
+        return weighted_crossentropy_2d(
+            logits.reshape(-1, logits.shape[-1]), batch["label"].reshape(-1), weights, mesh
+        )
 
 
 @contextlib.contextmanager

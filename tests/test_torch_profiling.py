@@ -323,3 +323,29 @@ def test_train_step_and_multistep_spans(tmp_path):
     assert snap["counts"] == {}  # training keeps no counter
     for scope in ("put", "forward", "backward", "optimizer", "bn_merge"):
         assert f'"{scope}"' in text, scope
+
+
+def test_end2end_step_spans(tmp_path):
+    """One tiny end2end train_step on the CPU: the hybrid's spans branch2d,
+    branch3d, hff and loss once each, children of forward (its self time
+    leaves them out); with no profiler open the step records nothing."""
+    from hdenseunet_tpu_torch.data.sampler import synthetic_batches
+    from hdenseunet_tpu_torch.train import trainer as T
+
+    cfg = Config()
+    cfg.model.preset, cfg.model.input_size = "tiny", 32
+    cfg.train.arch, cfg.train.batch = "end2end", 1
+    state = T.create_train_state(cfg, "end2end", device="cpu", seed=0)
+    batch = next(synthetic_batches(mode="hybrid", batch=1, input_size=32, input_cols=8, seed=0))
+    TP.reset()
+    T.train_step(state, batch, cfg)
+    assert TP.snapshot() == {"spans": {}, "counts": {}}
+    snap, text = _spans(tmp_path, lambda: T.train_step(state, batch, cfg))
+    inner = ("branch2d", "branch3d", "hff", "loss")
+    assert {n: snap["spans"][n]["count"] for n in inner + ("forward",)} == dict.fromkeys(
+        inner + ("forward",), 1)
+    forward = snap["spans"]["forward"]
+    children = sum(snap["spans"][n]["total_s"] for n in inner)
+    assert forward["self_s"] == pytest.approx(forward["total_s"] - children, abs=1e-9)
+    for scope in inner:
+        assert f'"{scope}"' in text, scope
