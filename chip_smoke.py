@@ -12,7 +12,10 @@ failure exits non-zero):
    time, the plain version's and its bound: K1 (affine_relu) at the serving
    shapes (K5 in phase 4's k5 part), K1's backward at the end2end training
    shapes, K2 (weighted CE) forward and backward at the training stages'
-   row counts; each wrapper
+   row counts, K6 (training's live BN∘[Scale]∘[ReLU], forward and
+   backward) at every live BN shape of the graphed training cells, timed
+   from CUDA graph replays beside the pre-K6 ATen chain (also alone:
+   ``python3 chip_smoke.py k6``); each wrapper
    call runs one kernel (torch.profiler); calls of other shapes queued back
    to back give the plain answers and the same bits when repeated (each
    kernel's last block resets the counter it took a ticket from);
@@ -152,8 +155,8 @@ failure exits non-zero):
    (``variants_path``): the legacy skip-connection DenseUNet-167 in
    serving form (batch 8 of 224x224, batch 1 of 512x512, bfloat16, K1)
    against the same forward through K1's plain version, and its
-   training-mode step (K2); ``DilatedResNet`` at widths 64-512, forward and
-   training-mode step; both card against CPU in float32 through the parity
+   training-mode step (K2, K6); ``DilatedResNet`` at widths 64-512, forward and
+   training-mode step (K6); both card against CPU in float32 through the parity
    tool; ms, peak memory and FLOPs per forward;
 9. data parallelism over the 'data' mesh, full width (one step of each
    stage from the seeded weights on the first global batch is the
@@ -165,7 +168,8 @@ failure exits non-zero):
    - train_dp_w2: two processes (``chip_smoke.py dp-rank``) share the card
      over gloo, 4 rows each of global batch 8, 3 steps of end2end and of
      the 2D stage: the ranks' parameters and statistics bit-identical,
-     launches per step as one process's, ms/step and the all-reduce share
+     launches per step as one process's but K6's 0 (live BN takes the
+     all-reduced statistics), ms/step and the all-reduce share
      of a step; step 1 held to the one-process step in float32 (TF32 off),
      the bfloat16 step 1's difference reported. Two ranks on one card
      check the semantics, not scaling;
@@ -190,7 +194,8 @@ failure exits non-zero):
    pipelined loop) counts K3a = the plans' live batches summed over every
    scoring, K3b = the pipelined loop's labelmasks, K1 4 and K5 111 a
    live batch; bench_train (the 2D stage, live BN, so no K1)
-   counts K2 once a step run eagerly or captured, never a replayed one.
+   counts K2 and K6's per-step launches once a step run eagerly or
+   captured, never a replayed one.
    The phase's wall seconds and the line are printed;
 then a JSON line describing the kernels, and the last line
 {"ok": true, "device": {...}}.
@@ -204,7 +209,9 @@ variants_parity, train_dp_w1_*, train_dp_w2_*, serve_dp_w2, cli_train_dp,
 cli_train_dp_resume, bench_serve, bench_train)
 runs with every launch counter set to 0 just before it and read just after
 (in the process that runs it), and fails if a kernel of that path did not
-launch. A replayed CUDA graph launches its kernels without the wrappers:
+launch. K6's counts are held on every path: on one rank, a forward for each
+live BN a step and each one remat recomputes, a backward for each live BN
+(``k6_per_step``); 0 under a mesh of several ranks and when serving. A replayed CUDA graph launches its kernels without the wrappers:
 train_graph_* counts the eager group's launches and the captured step's
 times its replays.
 """
@@ -254,6 +261,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989.4e12
 TRAIN_STEPS = 4
+K6_EPS = 1.1e-5  # the encoder BNs' eps (models/denseunet2d.py EPS_ENCODER)
+# K6's stage shapes (rows, C) for PERF.md: d167.train.graphed's first and
+# last stage, one of each middle stage, the decoder's last BN; end2end's
+# head BN and 3D stages 2 and 5
+STAGE_SHAPES_K6 = (
+    ("d167 conv1", (125_440, 96)), ("d167 stage 2", (31_360, 288)), ("d167 stage 3", (7_840, 720)),
+    ("d167 stage 4", (1_960, 2_112)), ("d167 stage 5", (490, 2_160)), ("d167 bn_up4", (501_760, 64)),
+    ("end2end 3D stage 2", (401_408, 96)), ("end2end 3D stage 5", (784, 504)),
+    ("end2end head", (3_211_264, 64)),
+)
 # steps_per_dispatch of the graph phase and its run: the first group runs
 # eagerly (the warm-up), the second replays one captured step
 GRAPH_K, GRAPH_STEPS = 8, 16
@@ -264,6 +281,7 @@ BSR_2D = 161  # bn_scale_relu calls per 2D-branch forward (full preset)
 REMAT_2D = 156  # of them inside the 78 rematerialised conv blocks
 BUILD = Path(__file__).resolve().parent / "build"
 K12_NAMES = ("affine_relu", "affine_relu_backward", "wce_forward", "wce_backward")
+K6_NAMES = ("bn_live_forward", "bn_live_backward")
 K4_NAMES = ("cc_label", "largest_component", "fill_holes", "compose_prep", "compose_finish")
 K4_SHAPE = (512, 512, 112)  # LiTS in-plane size, 112 slices
 K3_NAMES = ("window_accumulate", "score_finish")
@@ -451,11 +469,12 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def counters() -> dict:
-    from hdenseunet_tpu_torch.ops import affine_gemm as K5, cc, fused_affine as K, score as S, wce as W
+    from hdenseunet_tpu_torch.ops import affine_gemm as K5, bn_live as K6, cc, fused_affine as K, score as S, wce as W
 
     return {
         "affine_relu": K.affine_relu, "affine_relu_backward": K.affine_relu_backward,
         "affine_gemm": K5.affine_gemm,
+        "bn_live_forward": K6.bn_live_forward, "bn_live_backward": K6.bn_live_backward,
         "wce_forward": W.wce_forward, "wce_backward": W.wce_backward,
         **{name: getattr(cc, name) for name in K4_NAMES},
         **{name: getattr(S, name) for name in K3_NAMES},
@@ -479,6 +498,33 @@ def route_counts(model) -> dict:
     blk = sum(name.endswith("_blk") for name in convs)
     scales = sum(isinstance(m, L.Scale) for m in model.modules())
     return dict(affine_relu=scales - 2 * x1 - blk, affine_gemm=x1 + blk)
+
+
+def k6_per_step(arch: str) -> dict:
+    """K6 launches of one training step on one rank under remat
+    (models/layers.live_bn): a forward for every live BatchNorm and one
+    more for each inside a conv block that remat recomputes (``*_x1_bn``,
+    ``*_x2_bn``), a backward for each. The live BNs: DenseUNet-167's for
+    '2d' (the legacy skip-connection network has the same), the 3D branch's
+    and the head's for 'end2end' (the 2D branch is frozen), every one of
+    DilatedResNet's for 'dilated' (no remat). Under a mesh of several ranks
+    live BN takes the all-reduced statistics instead, and K6 launches 0."""
+    from hdenseunet_tpu_torch.models import layers as L
+    from hdenseunet_tpu_torch.models.denseunet2d import DenseUNet2D
+    from hdenseunet_tpu_torch.models.dilated_resnet import DilatedResNet
+    from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
+
+    make, frozen, remat = {"2d": (DenseUNet2D, "-", True), "end2end": (HDenseUNet, "net2d.", True),
+                           "dilated": (DilatedResNet, "-", False)}[arch]
+    bns = [name for name, m in make(device="meta").named_modules()
+           if isinstance(m, L.BatchNorm) and not name.startswith(frozen)]
+    rerun = sum(name.endswith(("_x1_bn", "_x2_bn")) for name in bns) if remat else 0
+    return dict(bn_live_forward=len(bns) + rerun, bn_live_backward=len(bns))
+
+
+def without_k6(counts: dict) -> dict:
+    """Launch counts with K6's at 0: the same steps under a mesh of several ranks."""
+    return {**counts, **dict.fromkeys(K6_NAMES, 0)}
 
 
 def scaled(counts: dict, n: int) -> dict:
@@ -650,6 +696,258 @@ def check_k1_backward(card: str) -> dict:
             first["kernels_per_call"] = kernels_per_call(lambda: K.affine_relu_backward(g, x, scale, y))
     assert paths == {"vector", "scalar"}, paths
     return dict(max_abs_err=worst, **first)
+
+
+def graph_ms(fn, iters: int = 10) -> float:
+    """Mean device time of one call of fn, from replays of a CUDA graph
+    that captures ``iters`` calls: the host's launch cost, which paces
+    cuda_ms for a chain of small launches, stays out of the interval."""
+    from hdenseunet_tpu_torch.ops import build
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    build.reserve_scratch(stream)
+    with torch.cuda.stream(stream):
+        fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(iters):
+                fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * iters)
+    del graph
+    return ms
+
+
+def live_bn_sites(model, run) -> list:
+    """The live BN sites of one training step of ``model`` on the meta
+    device (``run(model)`` makes the step): (rows, C, scale, relu, forward
+    calls) each, a checkpoint's recompute counted as a call."""
+    from hdenseunet_tpu_torch.models import layers as L
+
+    seen = {}
+    live_bn = L.live_bn
+
+    def recorded(x, bn, sc, ctx, *, relu):
+        site = seen.setdefault(id(bn), [x.numel() // x.shape[1], x.shape[1], sc is not None, relu, 0])
+        site[-1] += 1
+        return live_bn(x, bn, sc, ctx, relu=relu)
+
+    L.live_bn = recorded
+    try:
+        run(model)
+    finally:
+        L.live_bn = live_bn
+    return [tuple(site) for site in seen.values()]
+
+
+def k6_sites() -> dict:
+    """Each graphed training cell's live BN sites: d167.train.graphed's
+    DenseUNet-167 at batch 10 of 224x224x3, hdu.train.end2end's hybrid at
+    8 x 224x224x8 (its 3D branch and head), both under remat 'full'."""
+    from hdenseunet_tpu_torch.models import layers as L
+    from hdenseunet_tpu_torch.models.denseunet2d import DenseUNet2D
+    from hdenseunet_tpu_torch.models.hybrid import HDenseUNet
+
+    def d167(model):
+        x = torch.empty((10, 224, 224, 3), device="meta", dtype=torch.bfloat16)
+        _, logits = model(x, L.Ctx(0, device="meta", remat=True), decoder_dropout=0.3)
+        logits.float().sum().backward()
+
+    def end2end(model):
+        vol = torch.empty((8, 224, 224, 8, 1), device="meta", dtype=torch.bfloat16)
+        model(vol, L.Ctx(0, device="meta", remat=True), arch="end2end").float().sum().backward()
+
+    return {"d167.train.graphed": live_bn_sites(DenseUNet2D(device="meta"), d167),
+            "hdu.train.end2end": live_bn_sites(HDenseUNet(device="meta"), end2end)}
+
+
+def aten_bn_chain(x, gb, bb, gs, bs, relu: bool):
+    """The live BN∘[Scale]∘[ReLU] as models/layers.py ran it before K6, on
+    a (rows, C) x: torch.var_mean of a float32 copy, the BN and Scale
+    affines in x's dtype, the ReLU."""
+    var, mean = torch.var_mean(x.float(), dim=0, correction=0)
+    inv = torch.rsqrt(var + K6_EPS) * gb
+    y = x * inv.to(x.dtype) + (bb - mean * inv).to(x.dtype)
+    if gs is not None:
+        y = y * gs.to(x.dtype) + bs.to(x.dtype)
+    return torch.relu(y) if relu else y
+
+
+def k6_errors(x, g, gb, bb, gs, bs, relu: bool, got, label: str) -> dict:
+    """Hold K6's forward and backward (``got``: y, mean, var, coef, dx and
+    grads of one call each) to their plain versions at the card tests'
+    bars (tests/test_torch_bn_live.py::test_cuda_kernel_matches_plain).
+    The statistics, the kernel's fp32 Welford folded in double against
+    torch.var_mean: mean within 2^-20 of sqrt(mean^2 + var), var within
+    2^-18 relative; inv and A within 2^-16 relative, B within 2^-16 of its
+    terms' magnitudes (it may cancel). From the kernel's own statistics: y
+    the same bits as the plain multiply and add; dx within one ulp of the
+    dtype plus 2^-20 of its three terms' magnitudes (fmaf against separate
+    roundings); the four parameter gradients, fp32 sums in other orders,
+    within 2^-16 of the sums of magnitudes. Returns each one's largest
+    error against its scale."""
+    from hdenseunet_tpu_torch.ops import bn_live as K
+
+    y, mean, var, coef, dx, grads = got
+    rows = x.shape[0]
+    _, want_mean, want_var, want_coef = K.bn_live_reference(x, gb, bb, gs, bs, eps=K6_EPS, relu=relu)
+    inv, a, b = coef
+    gsv = torch.ones_like(gb) if gs is None else gs
+    terms_b = (bb.abs() + (want_mean * want_coef[0] * gb).abs()) * gsv.abs() + (0 if bs is None else bs.abs())
+    errors = {
+        "mean": (mean - want_mean).abs() / torch.sqrt(want_mean**2 + want_var),
+        "var": (var - want_var).abs() / want_var,
+        "inv": (inv - want_coef[0]).abs() / want_coef[0].abs(),
+        "A": (a - want_coef[1]).abs() / want_coef[1].abs(),
+        "B": (b - want_coef[2]).abs() / terms_b,
+    }
+    bars = {"mean": 2**-20, "var": 2**-18, "inv": 2**-16, "A": 2**-16, "B": 2**-16}
+    want_y = x.float() * a + b
+    assert torch.equal(y, (torch.relu(want_y) if relu else want_y).to(x.dtype)), f"K6 y at {label}"
+    want_dx, want_grads = K.bn_live_backward_reference(g, x, mean, coef, gb, bb, gs, relu=relu)
+    xf, gf = x.float(), g.float()
+    if relu:
+        gf = torch.where(xf * a + b > 0, gf, 0.0)
+    c1 = gb * gsv * inv
+    s1, s2 = gf.abs().sum(0), (gf * (xf - mean) * inv).abs().sum(0)
+    terms = c1.abs() * gf.abs() + (c1 * s1 / rows).abs() + (c1 * s2 * inv / rows).abs() * (xf - mean).abs()
+    tol = torch.finfo(x.dtype).eps * want_dx.float().abs() + 2**-20 * terms
+    errors["dx"] = (dx.float() - want_dx.float()).abs() / tol
+    mags = torch.stack([gsv.abs() * s2, gsv.abs() * s1, gb.abs() * s2 + bb.abs() * s1, s1])
+    if gs is None:
+        mags[2:] = 0
+    errors["grads"] = (grads - want_grads).abs() / (2**-16 * mags + 1e-30)
+    bars.update(dx=1.0, grads=1.0)  # both already over their tolerance
+    # each error over its scale; an element whose error and scale are both 0 reads 0
+    worst = {k: float(torch.where(v.isnan(), 0.0, v).max()) for k, v in errors.items()}
+    bad = {k: v for k, v in worst.items() if not v <= bars[k]}
+    assert not bad, f"K6 at {label}: {bad} past {bars}"
+    return worst
+
+
+def check_k6(card: str) -> dict:
+    """K6 (ops/bn_live.py) at every live BN shape of the two graphed
+    training cells, bfloat16: each call held to its plain version
+    (``k6_errors``), then timed warm from CUDA graph replays (``graph_ms``),
+    forward and backward, beside the plain version's forward and backward
+    and the pre-K6 ATen chain's (library_ms: ``aten_bn_chain`` and its
+    autograd), each alone on its inputs. The bound reads x and writes y
+    forward, reads g and x and writes dx backward: 4 + 6 B an element. A
+    cell's step sums each site's forward calls (recompute included) and its
+    backward; the sites found on the meta device must match ``k6_per_step``.
+    Returns, per kernel, d167.train.graphed's step sums and the largest
+    errors over every shape, and each cell's step."""
+    from hdenseunet_tpu_torch.ops import bn_live as K
+
+    sites = k6_sites()
+    for cell, arch in (("d167.train.graphed", "2d"), ("hdu.train.end2end", "end2end")):
+        found = dict(bn_live_forward=sum(site[-1] for site in sites[cell]), bn_live_backward=len(sites[cell]))
+        assert found == k6_per_step(arch), (cell, found, k6_per_step(arch))
+    shapes = sorted({site[:4] for found in sites.values() for site in found})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    times, worst = {}, {}
+    for rows, c, scale, relu in shapes:
+        x = (0.7 + 2 * torch.randn((rows, c), device="cuda", generator=gen)).to(torch.bfloat16)
+        g = torch.randn((rows, c), device="cuda", generator=gen).to(torch.bfloat16)
+        gb, gs = (1 + 0.3 * torch.randn((2, c), device="cuda", generator=gen)).unbind()
+        bb, bs = (0.5 * torch.randn((2, c), device="cuda", generator=gen)).unbind()
+        gs, bs = (gs, bs) if scale else (None, None)
+        y, mean, var, coef = K.bn_live_forward(x, gb, bb, gs, bs, eps=K6_EPS, relu=relu)
+        dx, grads = K.bn_live_backward(g, x, mean, coef, gb, bb, gs, relu=relu)
+        torch.cuda.synchronize()
+        errors = k6_errors(x, g, gb, bb, gs, bs, relu, (y, mean, var, coef, dx, grads), f"{rows}x{c}")
+        worst = {k: max(worst.get(k, 0.0), v) for k, v in errors.items()}
+        xr = x.detach().requires_grad_()
+        leaves = [t.detach().requires_grad_() for t in (gb, bb) + ((gs, bs) if scale else ())]
+        chain_leaves = leaves + ([] if scale else [None, None])
+        fwd = graph_ms(lambda: K.bn_live_forward(x, gb, bb, gs, bs, eps=K6_EPS, relu=relu))
+        bwd = graph_ms(lambda: K.bn_live_backward(g, x, mean, coef, gb, bb, gs, relu=relu))
+        plain_fwd = graph_ms(lambda: K.bn_live_reference(x, gb, bb, gs, bs, eps=K6_EPS, relu=relu))
+        plain_bwd = graph_ms(lambda: K.bn_live_backward_reference(g, x, mean, coef, gb, bb, gs, relu=relu))
+        aten_fwd = graph_ms(lambda: aten_bn_chain(x, gb, bb, gs, bs, relu))
+        aten_both = graph_ms(lambda: torch.autograd.grad(
+            aten_bn_chain(xr, *chain_leaves, relu), [xr, *leaves], g))
+        times[(rows, c, scale, relu)] = dict(
+            fwd=fwd, bwd=bwd, plain_fwd=plain_fwd, plain_bwd=plain_bwd, aten_fwd=aten_fwd,
+            aten_bwd=aten_both - aten_fwd, bound_fwd=rows * c * 4 / HBM_BYTES_PER_S * 1e3,
+            bound_bwd=rows * c * 6 / HBM_BYTES_PER_S * 1e3)
+        del x, g, y, dx, xr
+    steps = {}
+    for cell, found in sites.items():
+        total = dict.fromkeys((f"{k}_{d}" for k in ("card", "plain", "aten", "bound") for d in ("fwd", "bwd")), 0.0)
+        for rows, c, scale, relu, calls in found:
+            t = times[(rows, c, scale, relu)]
+            for k, name in (("card", ""), ("plain", "plain_"), ("aten", "aten_"), ("bound", "bound_")):
+                total[f"{k}_fwd"] += calls * t[f"{name}fwd"]
+                total[f"{k}_bwd"] += t[f"{name}bwd"]
+        steps[cell] = dict(sites=len(found), calls=sum(site[-1] for site in found),
+                           elements=sum(site[0] * site[1] for site in found), **total)
+        both = {k: total[f"{k}_fwd"] + total[f"{k}_bwd"] for k in ("card", "plain", "aten", "bound")}
+        print(
+            f"K6 step {cell}: {len(found)} live sites, {steps[cell]['calls']} forward calls, "
+            f"{steps[cell]['elements'] / 1e9:.4f} G elements a forward; card {total['card_fwd']:.3f} + "
+            f"{total['card_bwd']:.3f} = {both['card']:.3f} ms, bound {both['bound']:.3f} ms "
+            f"({100 * both['bound'] / both['card']:.1f} %), plain {both['plain']:.3f} ms, ATen chain "
+            f"(library_ms) {total['aten_fwd']:.3f} + {total['aten_bwd']:.3f} = {both['aten']:.3f} ms; "
+            f"each site alone from graph replays [{card}]"
+        )
+    for (rows, c, scale, relu), t in sorted(times.items(), key=lambda kv: -kv[0][0] * kv[0][1])[:12]:
+        b = t["bound_fwd"] + t["bound_bwd"]
+        print(
+            f"K6 {rows}x{c} bf16 scale {int(scale)} relu {int(relu)}: card {t['fwd']:.4f} + "
+            f"{t['bwd']:.4f} ms, bound {b:.4f} ms ({100 * b / (t['fwd'] + t['bwd']):.1f} "
+            f"%), plain {t['plain_fwd']:.4f} + {t['plain_bwd']:.4f}, ATen chain (library_ms) "
+            f"{t['aten_fwd']:.4f} + {t['aten_bwd']:.4f} [{card}]"
+        )
+    for label, (rows, c) in STAGE_SHAPES_K6:
+        t = next(v for k, v in times.items() if k[:2] == (rows, c))
+        print(
+            f"K6 stage {label} {rows}x{c}: card {t['fwd'] + t['bwd']:.4f} ms, bound "
+            f"{t['bound_fwd'] + t['bound_bwd']:.4f}, plain {t['plain_fwd'] + t['plain_bwd']:.4f}, "
+            f"library_ms {t['aten_fwd'] + t['aten_bwd']:.4f} [{card}]"
+        )
+    x = torch.randn((31_360, 288), device="cuda").to(torch.bfloat16)
+    gb = torch.ones(288, device="cuda")
+    y, mean, var, coef = K.bn_live_forward(x, gb, gb, gb, gb, eps=K6_EPS, relu=True)
+    per_call = {"bn_live_forward": kernels_per_call(
+        lambda: K.bn_live_forward(x, gb, gb, gb, gb, eps=K6_EPS, relu=True), 2)}
+    per_call["bn_live_backward"] = kernels_per_call(
+        lambda: K.bn_live_backward(x, x, mean, coef, gb, gb, gb, relu=True), 2)
+    print(f"K6 worst over {len(shapes)} shapes (of each bar: mean, var, inv, A, B relative; dx, grads "
+          f"over their tolerance): { {k: float(f'{v:.3g}') for k, v in worst.items()} } [{card}]")
+    d167 = steps["d167.train.graphed"]
+    return {
+        name: dict(ms=d167[f"card_{d}"], plain_ms=d167[f"plain_{d}"], library_ms=d167[f"aten_{d}"],
+                   bound_ms=d167[f"bound_{d}"], bound_by="bytes", kernels_per_call=per_call[name],
+                   max_errors={k: worst[k] for k in keys}, steps=steps)
+        for name, d, keys in (("bn_live_forward", "fwd", ("mean", "var", "inv", "A", "B")),
+                              ("bn_live_backward", "bwd", ("dx", "grads")))
+    }
+
+
+def k6_main() -> None:
+    """``python3 chip_smoke.py k6``: the build, then K6's phase alone."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke k6: torch.cuda.is_available() is false; this script needs a card")
+    from hdenseunet_tpu_torch.ops import build
+
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}; cuda {torch.version.cuda}")
+    so, seconds = build.build()
+    print(f"build: {so.name} in {seconds:.1f} s")
+    t0 = time.perf_counter()
+    print(json.dumps({"k6": check_k6(card)}))
+    print(f"k6 phase: {time.perf_counter() - t0:.1f} s [{card}]")
 
 
 def wce_case(n: int, dtype, gen, *, depth: int | None):
@@ -1593,7 +1891,8 @@ def variants_path(card: str) -> dict:
     reset_counts()
     times, peak = timed_steps(legacy_step)
     launches = paths["variants_legacy_train"] = read_counts()
-    assert launches == only(wce_forward=3, wce_backward=3), launches  # the warm-up and 2 timed steps
+    # the warm-up and 2 timed steps
+    assert launches == only(wce_forward=3, wce_backward=3, **scaled(k6_per_step("2d"), 3)), launches
     assert all(bool(torch.isfinite(t.grad).all()) for t in legacy.parameters() if t.grad is not None)
     print(f"variants: legacy DenseUNet-167 train step (live BN, remat, weighted CE) batch 8 of 224x224 "
           f"bf16: {[round(t, 2) for t in times]} ms, peak {peak:.2f} GiB, launches "
@@ -1623,11 +1922,12 @@ def variants_path(card: str) -> dict:
 
     times, peak = timed_steps(dilated_step)
     launches = paths["variants_dilated"] = read_counts()
-    assert launches == only(), launches  # no kernel of the port's on this network
+    # inference runs no kernel of the port's on this network; training, K6 (3 steps)
+    assert launches == only(**scaled(k6_per_step("dilated"), 3)), launches
     print(f"variants: DilatedResNet (64, 128, 256, 512) bf16 batch 2 of 224x224x8: forward "
           f"{fwd_ms:.3f} ms, {flops / 1e12:.4f} TFLOP ({flops / fwd_ms / 1e9:.1f} TFLOP/s), peak "
           f"{fwd_peak:.2f} GiB; train step (live BN, cross-entropy) {[round(t, 2) for t in times]} ms, "
-          f"peak {peak:.2f} GiB; no kernel of the port [{card}]")
+          f"peak {peak:.2f} GiB; launches { {k: v for k, v in launches.items() if v} } [{card}]")
 
     BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_", dir=BUILD) as tmp:
@@ -2342,9 +2642,9 @@ def train_path(
     steps = TRAIN_STEPS
     if arch == "end2end":
         want = only(affine_relu=(BSR_2D + REMAT_2D) * steps, affine_relu_backward=BSR_2D * steps,
-                    wce_forward=steps, wce_backward=steps)
+                    wce_forward=steps, wce_backward=steps, **scaled(k6_per_step(arch), steps))
     else:
-        want = only(wce_forward=steps, wce_backward=steps)
+        want = only(wce_forward=steps, wce_backward=steps, **scaled(k6_per_step(arch), steps))
     assert launches == want, (arch, launches, want)
     ms = (end - asked[1]) / (steps - 1) * 1e3
     slices = cfg.train.batch * (cfg.model.input_cols if arch != "2d" else 1)
@@ -2354,7 +2654,8 @@ def train_path(
         f"{shape}: first step {(asked[1] - asked[0]) * 1e3:.1f} ms, {ms:.1f} ms/step over steps "
         f"2-{steps}, {slices / ms * 1e3:.1f} slices/s, peak {peak / 2**30:.2f} GiB, losses "
         f"{[round(v, 5) for v in losses]}, launches {launches} "
-        f"(K1 forward {launches['affine_relu'] // steps}/step) [{card}]"
+        f"(K1 forward {launches['affine_relu'] // steps}/step, K6 forward "
+        f"{launches['bn_live_forward'] // steps}/step) [{card}]"
     )
     weights = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
     return dict(launches=launches, calls=calls, ms=ms, losses=losses, peak=peak, weights=weights)
@@ -2370,7 +2671,8 @@ def train_convs_path(card: str, full: dict) -> dict:
     step of each policy from the same seeded weights and batch, held to
     phase 7's bars for a step against another. Returns the launch counts."""
     steps = TRAIN_STEPS
-    per_step = dict(affine_relu=BSR_2D + REMAT_2D, affine_relu_backward=BSR_2D, wce_forward=1, wce_backward=1)
+    per_step = dict(affine_relu=BSR_2D + REMAT_2D, affine_relu_backward=BSR_2D, wce_forward=1, wce_backward=1,
+                    **k6_per_step("end2end"))
     convs = train_path(card, "end2end", "convs")
     again = train_path(card, "end2end")
     assert convs["launches"] == full["launches"] == only(**{k: n * steps for k, n in per_step.items()}), (
@@ -2595,8 +2897,8 @@ def graph_path(card: str) -> dict:
     steps' as the captured launches times the replays."""
     per_step = {
         "end2end": dict(affine_relu=BSR_2D + REMAT_2D, affine_relu_backward=BSR_2D,
-                        wce_forward=1, wce_backward=1),
-        "2d": dict(wce_forward=1, wce_backward=1),
+                        wce_forward=1, wce_backward=1, **k6_per_step("end2end")),
+        "2d": dict(wce_forward=1, wce_backward=1, **k6_per_step("2d")),
     }
     replays = GRAPH_STEPS - GRAPH_K
     paths = {}
@@ -2841,7 +3143,8 @@ def cli_path(card: str, synthetic_ms: dict, per_batch: dict) -> dict:
                                   "--set", "train.save_path", str(root / "exp2d"), *common])
         launches["cli_train_2d"], timing["2d"] = read_counts(), (step_ms(marks), marks)
         assert state2d.step == CLI_STEPS and len(P.layers(state2d.model)) == LAYERS_2D
-        assert launches["cli_train_2d"] == only(wce_forward=CLI_STEPS, wce_backward=CLI_STEPS)
+        assert launches["cli_train_2d"] == only(wce_forward=CLI_STEPS, wce_backward=CLI_STEPS,
+                                                **scaled(k6_per_step("2d"), CLI_STEPS)), launches["cli_train_2d"]
         del state2d
 
         with cli_clock() as marks:
@@ -2853,7 +3156,7 @@ def cli_path(card: str, synthetic_ms: dict, per_batch: dict) -> dict:
         m = re.search(r"warm start: (\d+) layers loaded, (\d+) skipped, (\d+) shape-mismatched", text)
         assert m and tuple(map(int, m.groups())) == (LAYERS_2D, 0, 0), text
         per_step = {"affine_relu": BSR_2D + REMAT_2D, "affine_relu_backward": BSR_2D,
-                    "wce_forward": 1, "wce_backward": 1}
+                    "wce_forward": 1, "wce_backward": 1, **k6_per_step("end2end")}
         assert launches["cli_train_end2end"] == only(**{k: n * CLI_STEPS for k, n in per_step.items()})
         assert C.Checkpointer(cke).all_steps() == [2, CLI_STEPS] and state.step == CLI_STEPS
         saved = C.snapshot(state)
@@ -2897,6 +3200,7 @@ def cli_path(card: str, synthetic_ms: dict, per_batch: dict) -> dict:
                               "--num-volumes", "1", "--set", "model.compute_dtype", "bfloat16"])
         launches["cli_test"] = read_counts()
         assert launches["cli_test"]["affine_relu"] > 0 and launches["cli_test"]["affine_relu_backward"] == 0
+        assert not any(launches["cli_test"][k] for k in K6_NAMES), launches["cli_test"]
         assert launches["cli_test"]["affine_gemm"] == launches["cli_test"]["affine_relu"] // 4 * 111
         assert all(launches["cli_test"][k] == 0 for k in ("wce_forward", "wce_backward", *K4_NAMES))
         assert launches["cli_test"]["window_accumulate"] > 0 and launches["cli_test"]["score_finish"] == 1
@@ -3027,7 +3331,7 @@ def train_check(card: str) -> None:
         launches = read_counts()
     finally:
         L.dropout = dropout
-    assert all(launches[name] > 0 for name in K12_NAMES), launches
+    assert all(launches[name] > 0 for name in K12_NAMES + K6_NAMES), launches
     assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0]), losses
     worst = 0.0
     for name, d_cpu in deltas[0].items():
@@ -3298,9 +3602,12 @@ def dp_two_ranks(card: str, one_steps: dict, exact_steps: dict, serve_ref: dict)
                   f"{bf16['loss']:.7g} against {one_steps[arch]['loss']:.7g}, worst update error {worst16:.3g} "
                   f"of its tensor's update norm, {len(bad16)} tensors past phase 7's bars: "
                   f"{[(b[0], round(b[1], 3)) if isinstance(b[1], float) else b for b in bad16[:5]]} [{card}]")
+            # one process's launches a step, but no K6: two ranks take the all-reduced statistics
             per_step = {k: n // DP_STEPS for k, n in runs[0]["launches"].items()}
-            if per_step != exact_steps[arch]["launches"] or exact["launches"] != exact_steps[arch]["launches"]:
-                failed.append((arch, per_step, exact["launches"], exact_steps[arch]["launches"]))
+            want = without_k6(exact_steps[arch]["launches"])
+            assert all(exact_steps[arch]["launches"][k] for k in K6_NAMES), exact_steps[arch]["launches"]
+            if per_step != want or exact["launches"] != want:
+                failed.append((arch, per_step, exact["launches"], want))
             launches[f"train_dp_w2_{arch}"] = runs[0]["launches"]
         probs = torch.load(root / "probs.pt")
         exact = serve_ref["float32"]
@@ -3417,8 +3724,9 @@ def cli_train_dp(card: str) -> dict:
             print(f"  | {line}")
         assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
         child = json.loads(counts.read_text())
+        # one rank: live BN takes K6
         per_step = {"affine_relu": BSR_2D + REMAT_2D, "affine_relu_backward": BSR_2D,
-                    "wce_forward": 1, "wce_backward": 1}
+                    "wce_forward": 1, "wce_backward": 1, **k6_per_step("end2end")}
         assert (child["world"], child["backend"], child["step"]) == (1, "nccl", 2), child
         assert child["launches"] == only(**{k: 2 * n for k, n in per_step.items()}), child["launches"]
         saved = C.load(root / "ck" / "step-2.pt")
@@ -3502,7 +3810,7 @@ def bench_path(card: str) -> dict:
     # the first step, the chained loops, and each endpoint's eager call and capture
     steps = (1 + env["BENCH_TRAIN_REPS"] * env["BENCH_TRAIN_STEPS"]
              + env["BENCH_TRAIN_K_SMALL"] + 1 + env["BENCH_TRAIN_K_BIG"] + 1)
-    assert train == only(wce_forward=steps, wce_backward=steps), (train, steps)
+    assert train == only(wce_forward=steps, wce_backward=steps, **scaled(k6_per_step("2d"), steps)), (train, steps)
     print(
         f"bench: bench_torch.main under {BENCH_ENV}: exit {status}, {len(lines)} cumulative lines, "
         f"{seconds:.1f} s; {len(live)} scorings over {sum(live)} live window batches, {len(digests)} "
@@ -3544,6 +3852,8 @@ def main() -> None:
     lap("k1_backward")
     k2_fwd, k2_bwd = check_k2(card)
     lap("k2")
+    k6 = check_k6(card)
+    lap("k6")
     check_back_to_back(card)
     lap("back_to_back")
     serve = serve_path(card)
@@ -3632,10 +3942,13 @@ def main() -> None:
         ("score_finish", "score.cu", "infer/device_pipeline.py:1195", k3["numbers"]["score_finish"]),
         # no Pallas body: the XLA fusion of the folded affine into the 1x1 convs
         ("affine_gemm", "affine_gemm.cu", "ops/fused_affine.py:95", k5["numbers"]),
+        # no Pallas body: XLA fuses the live BN, Scale and ReLU
+        ("bn_live_forward", "bn_live.cu", "models/layers.py:142", k6["bn_live_forward"]),
+        ("bn_live_backward", "bn_live.cu", "models/layers.py:142", k6["bn_live_backward"]),
     ):
-        main_path = {"cc.cu": "serve_dpp", "score.cu": "serve", "affine_gemm.cu": "serve"}.get(
-            source, "train_end2end")
-        per = {"launches_per_volume": paths[main_path][name] // 2} if main_path != "train_end2end" else {
+        main_path = {"cc.cu": "serve_dpp", "score.cu": "serve", "affine_gemm.cu": "serve",
+                     "bn_live.cu": "train_2d"}.get(source, "train_end2end")
+        per = {"launches_per_volume": paths[main_path][name] // 2} if main_path.startswith("serve") else {
             "launches_per_step": paths[main_path][name] // TRAIN_STEPS}
         kernels.append({
             "name": name,
@@ -3646,7 +3959,8 @@ def main() -> None:
             **per,
             "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             **numbers,
-            # K5's product alone is one cuDNN call; nothing else has one
+            # K5's product alone is one cuDNN call; K6's, the ATen chain it
+            # replaced; nothing else has one
             "library_ms": numbers.get("library_ms"),
         })
     print(json.dumps({"kernels": kernels}))
@@ -3665,5 +3979,7 @@ if __name__ == "__main__":
         dp_rank(json.loads(sys.argv[2]))
     elif sys.argv[1:2] == ["cli-rank"]:
         cli_rank(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:2] == ["k6"]:
+        k6_main()
     else:
         main()

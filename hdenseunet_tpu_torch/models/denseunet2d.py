@@ -158,7 +158,7 @@ class DenseUNet2D(nn.ModuleDict):
             x = self[f"conv_up{idx}"](x)
             if idx == 4:
                 x = L.maybe_dropout(ctx, x, decoder_dropout)
-            x = torch.relu(self[f"bn_up{idx}"](x, ctx, frozen=frozen))
+            x = L.bn_relu(x, self[f"bn_up{idx}"], ctx, frozen=frozen)
         logits = self["dense167classifer"](x)
         L.tap(taps, "ac_up4", x)
         L.tap(taps, "dense167classifer", logits)

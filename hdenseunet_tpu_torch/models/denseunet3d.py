@@ -245,7 +245,7 @@ class DenseUNet3D(nn.ModuleDict):
                 x = ops.avg_pool(x, (2, 2, 1), (2, 2, 1))
         for idx, up in enumerate(UPSAMPLE):  # UpSample -> Conv3x3x3 -> BN -> ReLU
             x = ops.conv(self[f"3dconv_up{idx}"], ops.upsample(x, up))
-            x = torch.relu(self[f"3dbn_up{idx}"](x, ctx, frozen=frozen))
+            x = L.bn_relu(x, self[f"3dbn_up{idx}"], ctx, frozen=frozen)
         logits = ops.conv(self["3dclassifer"], x)
         tap("3dac_up4", x)
         tap("3dclassifer", logits)

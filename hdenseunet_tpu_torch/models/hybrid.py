@@ -81,7 +81,7 @@ class HFFHead(nn.ModuleDict):
             fused = ops.fold((feat3d + fea2d).movedim(-1, 1))
         f = ops.conv(self["fianl_conv"], fused)
         f = L.maybe_dropout(ctx, f, 0.3 if arch == "end2end" else 0.1)
-        f = torch.relu(self["final_bn"](f, ctx))
+        f = L.bn_relu(f, self["final_bn"], ctx)
         return ops.unfold(ops.conv(self["2d3dclassifer"], f)).movedim(1, -1)
 
 

@@ -53,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.mesh import all_reduce_sum, axis_group, axis_rank, axis_size
 from ..ops import affine_gemm as K5
+from ..ops.bn_live import BNLive
 from ..ops.fused_affine import AffineReLU, fold_bn_scale
 
 _FORMATS = {4: torch.channels_last, 5: torch.channels_last_3d}
@@ -329,10 +330,12 @@ class BatchNorm(nn.Module):
     With a training ``ctx`` and ``frozen`` False it normalises with the
     batch's float32 mean and biased variance over every axis but channels,
     and writes ``momentum*moving + (1-momentum)*batch`` into
-    ``ctx.new_stats``. Under a mesh of several ranks the batch is the
-    global one (:func:`global_moments`). Otherwise (inference, or the
-    hybrid's frozen 2D branch) it uses the moving statistics. The affine is
-    folded in float32 and applied in x's dtype either way.
+    ``ctx.new_stats``: on one rank through K6 (:func:`live_bn`), which
+    applies the affine in float32 and rounds once; under a mesh of several
+    ranks the batch is the global one (:func:`global_moments`). Otherwise
+    (inference, or the hybrid's frozen 2D branch) it uses the moving
+    statistics. Outside K6 the affine is folded in float32 and applied in
+    x's dtype.
     """
 
     def __init__(self, c, *, eps=1e-3, momentum=0.99, device=None):
@@ -350,16 +353,11 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, ctx: Ctx | None = None, *, frozen: bool = False):
         if ctx is not None and not frozen:
-            dims = [d for d in range(x.dim()) if d != 1]
             if ctx.group is None:
-                var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
-            else:
-                mean, var = global_moments(x.float(), dims, ctx.group)
-            m = self.momentum
-            ctx.new_stats[self] = (
-                m * self.moving_mean + (1.0 - m) * mean.detach(),
-                m * self.moving_variance + (1.0 - m) * var.detach(),
-            )
+                return live_bn(x, self, None, ctx, relu=False)
+            dims = [d for d in range(x.dim()) if d != 1]
+            mean, var = global_moments(x.float(), dims, ctx.group)
+            self.record(ctx, mean, var)
         else:
             mean, var = self.moving_mean, self.moving_variance
         # affine folded in float32, applied in the tensor's own dtype
@@ -368,6 +366,38 @@ class BatchNorm(nn.Module):
         shape = [1] * x.dim()
         shape[1] = -1
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+    def record(self, ctx: Ctx, mean, var):
+        """Assign ``momentum*moving + (1-momentum)*batch`` of the batch's
+        mean and biased variance to ``ctx.new_stats``."""
+        m = self.momentum
+        ctx.new_stats[self] = (
+            m * self.moving_mean + (1.0 - m) * mean.detach(),
+            m * self.moving_variance + (1.0 - m) * var.detach(),
+        )
+
+
+def live_bn(x, bn: BatchNorm, sc: Scale | None, ctx: Ctx, *, relu: bool):
+    """bn with the batch's statistics, then sc when given, then the ReLU
+    when ``relu``, as one K6 call (``ops/bn_live.py``: the kernels on the
+    card, the plain version on the CPU), whose batch mean and variance bn
+    records in ``ctx.new_stats``. One rank only: under a mesh of several
+    the statistics need an all-reduce (:func:`global_moments`)."""
+    y, mean, var = BNLive.apply(
+        x, bn.gamma, bn.beta, None if sc is None else sc.gamma, None if sc is None else sc.beta,
+        bn.eps, relu,
+    )
+    bn.record(ctx, mean, var)
+    return y
+
+
+def bn_relu(x, bn: BatchNorm, ctx: Ctx | None = None, *, frozen: bool = False):
+    """``relu(bn(x, ctx, frozen=frozen))``, the decoders' and the head's
+    BN -> ReLU: with live statistics on one rank, one K6 call with the ReLU
+    inside (:func:`live_bn`)."""
+    if ctx is not None and not frozen and ctx.group is None:
+        return live_bn(x, bn, None, ctx, relu=True)
+    return torch.relu(bn(x, ctx, frozen=frozen))
 
 
 def global_moments(x, dims, group):
@@ -423,12 +453,16 @@ def bn_scale_relu(
 ):
     """BN -> Scale -> [ReLU] in front of every encoder conv (layers.py:187-222).
 
-    Live statistics (a training ``ctx``, not ``frozen``): three plain ops.
-    Frozen or inference statistics: one folded affine through K1
+    Live statistics (a training ``ctx``, not ``frozen``): one K6 call
+    (:func:`live_bn`) on one rank; under a mesh of several, BN's
+    all-reduced statistics, then Scale and ReLU as plain ops. Frozen or
+    inference statistics: one folded affine through K1
     (:class:`AffineReLU`, differentiable into the BN and Scale leaves). At
     inference the pair folded by :meth:`Scale.freeze` is used if there is one.
     """
     if ctx is not None and not frozen:
+        if ctx.group is None:
+            return live_bn(x, bn, sc, ctx, relu=relu_after)
         y = sc(bn(x, ctx))
         return torch.relu(y) if relu_after else y
     a, b = folded_pair(bn, sc, ctx)

@@ -135,14 +135,13 @@ def test_convs_writes_bn_statistics_once(inits, monkeypatch):
     times: the statistics after the step are the un-rematerialised step's,
     one momentum update, not two."""
     runs = {}
-    forward = L.BatchNorm.forward
+    record = L.BatchNorm.record  # every live BN assigns its statistics here
 
-    def counted(bn, x, ctx=None, *, frozen=False):
-        if ctx is not None and not frozen:
-            runs[bn] = runs.get(bn, 0) + 1
-        return forward(bn, x, ctx, frozen=frozen)
+    def counted(bn, ctx, mean, var):
+        runs[bn] = runs.get(bn, 0) + 1
+        return record(bn, ctx, mean, var)
 
-    monkeypatch.setattr(L.BatchNorm, "forward", counted)
+    monkeypatch.setattr(L.BatchNorm, "record", counted)
     st, *_ = convs = _step(inits, "2d", monkeypatch, remat=True, policy="convs")
     twice = {bn for bn, n in runs.items() if n == 2}
     assert len(twice) == 2 * sum(st.model.blocks) and set(runs.values()) == {1, 2}
