@@ -168,8 +168,9 @@ failure exits non-zero):
    - train_dp_w2: two processes (``chip_smoke.py dp-rank``) share the card
      over gloo, 4 rows each of global batch 8, 3 steps of end2end and of
      the 2D stage: the ranks' parameters and statistics bit-identical,
-     launches per step as one process's but K6's 0 (live BN takes the
-     all-reduced statistics), ms/step and the all-reduce share
+     launches per step as one process's, K6's included (live BN merges
+     its statistics across the ranks between K6's passes), ms/step and
+     the all-reduce share
      of a step; step 1 held to the one-process step in float32 (TF32 off),
      the bfloat16 step 1's difference reported. Two ranks on one card
      check the semantics, not scaling;
@@ -211,7 +212,7 @@ runs with every launch counter set to 0 just before it and read just after
 (in the process that runs it), and fails if a kernel of that path did not
 launch. K6's counts are held on every path: on one rank, a forward for each
 live BN a step and each one remat recomputes, a backward for each live BN
-(``k6_per_step``); 0 under a mesh of several ranks and when serving. A replayed CUDA graph launches its kernels without the wrappers:
+(``k6_per_step``), as many under a mesh of several ranks; 0 when serving. A replayed CUDA graph launches its kernels without the wrappers:
 train_graph_* counts the eager group's launches and the captured step's
 times its replays.
 """
@@ -507,8 +508,8 @@ def k6_per_step(arch: str) -> dict:
     ``*_x2_bn``), a backward for each. The live BNs: DenseUNet-167's for
     '2d' (the legacy skip-connection network has the same), the 3D branch's
     and the head's for 'end2end' (the 2D branch is frozen), every one of
-    DilatedResNet's for 'dilated' (no remat). Under a mesh of several ranks
-    live BN takes the all-reduced statistics instead, and K6 launches 0."""
+    DilatedResNet's for 'dilated' (no remat). A mesh of several ranks
+    launches as many: K6 merges the statistics between its passes."""
     from hdenseunet_tpu_torch.models import layers as L
     from hdenseunet_tpu_torch.models.denseunet2d import DenseUNet2D
     from hdenseunet_tpu_torch.models.dilated_resnet import DilatedResNet
@@ -520,11 +521,6 @@ def k6_per_step(arch: str) -> dict:
            if isinstance(m, L.BatchNorm) and not name.startswith(frozen)]
     rerun = sum(name.endswith(("_x1_bn", "_x2_bn")) for name in bns) if remat else 0
     return dict(bn_live_forward=len(bns) + rerun, bn_live_backward=len(bns))
-
-
-def without_k6(counts: dict) -> dict:
-    """Launch counts with K6's at 0: the same steps under a mesh of several ranks."""
-    return {**counts, **dict.fromkeys(K6_NAMES, 0)}
 
 
 def scaled(counts: dict, n: int) -> dict:
@@ -3602,10 +3598,10 @@ def dp_two_ranks(card: str, one_steps: dict, exact_steps: dict, serve_ref: dict)
                   f"{bf16['loss']:.7g} against {one_steps[arch]['loss']:.7g}, worst update error {worst16:.3g} "
                   f"of its tensor's update norm, {len(bad16)} tensors past phase 7's bars: "
                   f"{[(b[0], round(b[1], 3)) if isinstance(b[1], float) else b for b in bad16[:5]]} [{card}]")
-            # one process's launches a step, but no K6: two ranks take the all-reduced statistics
+            # one process's launches a step, K6's included
             per_step = {k: n // DP_STEPS for k, n in runs[0]["launches"].items()}
-            want = without_k6(exact_steps[arch]["launches"])
-            assert all(exact_steps[arch]["launches"][k] for k in K6_NAMES), exact_steps[arch]["launches"]
+            want = exact_steps[arch]["launches"]
+            assert all(want[k] for k in K6_NAMES), want
             if per_step != want or exact["launches"] != want:
                 failed.append((arch, per_step, exact["launches"], want))
             launches[f"train_dp_w2_{arch}"] = runs[0]["launches"]

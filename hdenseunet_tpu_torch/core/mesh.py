@@ -6,7 +6,7 @@ Data parallelism in the port is one process per card. The JAX package's 1-D
 process group's ranks; the global batch is split into equal row blocks, one
 per rank (rank r holds rows [r*n, (r+1)*n)), parameters are replicated, and
 the code that needs a reduction over the global batch issues it on the
-mesh's process group: BatchNorm's live statistics (``models/layers.py``),
+mesh's process group: BatchNorm's live statistics (``ops/bn_live.py``),
 the loss sums of K2 (``ops/wce.py``), the gradients (``train/trainer.py``)
 and the window scores (``infer/``). Only ``all_reduce``, ``broadcast`` and
 ``barrier`` are used, so the same code runs over NCCL on cards and over gloo
@@ -80,29 +80,6 @@ def axis_group(mesh):
     """The process group of the 'data' axis, or None (no mesh, or a
     :class:`LocalMesh`): where it is None, no collective is issued."""
     return None if mesh is None else mesh.get_group()
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """Differentiable SUM all-reduce: each rank's gradient of the sum is the
-    sum of every rank's upstream gradient (torch.distributed.nn's
-    ``all_reduce``, which later PyTorch releases deprecate)."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return _AllReduceSum.apply(g, ctx.group), None
-
-
-def all_reduce_sum(t, group):
-    """Sum of ``t`` over the ranks of ``group``, as a new tensor through
-    which gradients flow (the backward is a SUM all-reduce too)."""
-    return _AllReduceSum.apply(t, group)
 
 
 def batch_sharding(mesh):

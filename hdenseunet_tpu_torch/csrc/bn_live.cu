@@ -44,6 +44,16 @@
 // takes a C that is not a multiple of the vector width, or an unaligned
 // pointer.
 //
+// On a mesh of several ranks the batch statistics and S1/S2 are the global
+// batch's, so each entry point runs in two phases with a merge across ranks
+// between them (ops/bn_live.py): phase 1 is the reduction alone, which
+// writes this rank's per-channel sums in double, unrounded; phase 2 takes
+// the merged sums and finishes with one small launch (bn_live_coef,
+// bn_live_bwd_coef) and the apply kernel. Phase 0, one rank, is both in one
+// call: the reduction's last block finishes itself, two launches a
+// direction. The finish is one device function either way, so phase 1 then
+// phase 2 on unmerged sums gives phase 0's bits.
+//
 // Each launch goes on the caller's stream and allocates nothing: the
 // partials and tickets live in the caller's per-stream scratch
 // (common.cuh); it returns cudaGetLastError() and the Python wrapper
@@ -124,11 +134,58 @@ __device__ __forceinline__ double2 widen(float2 v) {
   return make_double2((double)v.x, (double)v.y);
 }
 
+// Channel ch's batch mean and biased variance (var may be a rounding below
+// zero) -> mean, var (C,) and coef (3, C): inv, A, B, fp32, each product
+// and sum rounded once, as the plain version's.
+__device__ __forceinline__ void finish_stats(int ch, int c, double mean, double var, float eps,
+                                             const float* gamma_bn, const float* beta_bn,
+                                             const float* gamma_s, const float* beta_s,
+                                             float* mean_out, float* var_out, float* coef) {
+  const float mu = (float)mean;
+  const float v = var > 0.0 ? (float)var : 0.f;
+  const float inv = (float)(1.0 / sqrt((double)__fadd_rn(v, eps)));
+  float a = __fmul_rn(inv, gamma_bn[ch]);
+  float b = __fsub_rn(beta_bn[ch], __fmul_rn(mu, a));
+  if (gamma_s != nullptr) {
+    b = __fadd_rn(__fmul_rn(b, gamma_s[ch]), beta_s[ch]);
+    a = __fmul_rn(a, gamma_s[ch]);
+  }
+  mean_out[ch] = mu;
+  var_out[ch] = v;
+  coef[ch] = inv;
+  coef[c + ch] = a;
+  coef[2 * c + ch] = b;
+}
+
+// Channel ch's gradients from this rank's sums (s1, s2) and dx's
+// coefficients from the global batch's (S1, S2 over n rows): grads (4, C)
+// dgamma_bn, dbeta_bn, dgamma_s, dbeta_s (the last two zero without a
+// Scale); dcoef (3, C) c1, c0, c2. On one rank the two pairs are one.
+__device__ __forceinline__ void finish_grads(int ch, int c, double s1, double s2, double S1,
+                                             double S2, double n, const float* coef,
+                                             const float* gamma_bn, const float* beta_bn,
+                                             const float* gamma_s, float* grads, float* dcoef) {
+  const double gb = gamma_bn[ch];
+  const double gs = gamma_s != nullptr ? (double)gamma_s[ch] : 1.0;
+  grads[ch] = (float)(gs * s2);
+  grads[c + ch] = (float)(gs * s1);
+  grads[2 * c + ch] =
+      gamma_s != nullptr ? (float)__dadd_rn(__dmul_rn(gb, s2), __dmul_rn((double)beta_bn[ch], s1)) : 0.f;
+  grads[3 * c + ch] = gamma_s != nullptr ? (float)s1 : 0.f;
+  const double iv = coef[ch];
+  const double c1 = gb * gs * iv;
+  dcoef[ch] = (float)c1;
+  dcoef[c + ch] = (float)(-c1 * S1 / n);
+  dcoef[2 * c + ch] = (float)(-c1 * S2 * iv / n);
+}
+
 // ---------------------------------------------------------------------------
 // Forward statistics. Block (tx, ty) of grid (row blocks, tiles); the tile's
 // partials in the scratch: (gridDim.x, 2, width) fp32, each block's mean
 // then M2 over its rows; counters[blockIdx.y] is the tile's ticket.
-// Outputs, (C,) fp32 each: mean, var (biased), and coef (3, C): inv, A, B.
+// Outputs, (C,) fp32 each: mean, var (biased), and coef (3, C): inv, A, B;
+// or, given `moments` (phase 1), the mean and variance in double there, (2,
+// C), unfinished.
 // ---------------------------------------------------------------------------
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -136,8 +193,8 @@ bn_live_stats(const T* __restrict__ x, const float* __restrict__ gamma_bn,
               const float* __restrict__ beta_bn, const float* __restrict__ gamma_s,
               const float* __restrict__ beta_s, float eps, float* __restrict__ partial,
               unsigned int* __restrict__ counters, float* __restrict__ mean_out,
-              float* __restrict__ var_out, float* __restrict__ coef, long long rows, int c,
-              long long rows_per_block) {
+              float* __restrict__ var_out, float* __restrict__ coef,
+              double* __restrict__ moments, long long rows, int c, long long rows_per_block) {
   using P = typename Packed<T, VEC>::type;
   __shared__ __align__(16) float red[2][kThreads * kMaxVec];
   __shared__ double fold[2 * kThreads];
@@ -227,23 +284,30 @@ bn_live_stats(const T* __restrict__ x, const float* __restrict__ gamma_bn,
         const int ch = blockIdx.y * width + k;
         if (ch >= c) return;
         const double n = (double)rows;
-        const float mu = (float)((double)shift[k] + s / n);
+        const double mu = (double)shift[k] + s / n;
         const double v = (q - s * s / n) / n;
-        const float var = v > 0.0 ? (float)v : 0.f;
-        const float inv = (float)(1.0 / sqrt((double)(var + eps)));
-        float a = inv * gamma_bn[ch];
-        float b = beta_bn[ch] - mu * a;
-        if (gamma_s != nullptr) {
-          b = b * gamma_s[ch] + beta_s[ch];
-          a = a * gamma_s[ch];
+        if (moments != nullptr) {
+          moments[ch] = mu;
+          moments[c + ch] = v;
+        } else {
+          finish_stats(ch, c, mu, v, eps, gamma_bn, beta_bn, gamma_s, beta_s, mean_out, var_out,
+                       coef);
         }
-        mean_out[ch] = mu;
-        var_out[ch] = var;
-        coef[ch] = inv;
-        coef[c + ch] = a;
-        coef[2 * c + ch] = b;
       });
   if (tid == 0) counters[blockIdx.y] = 0;
+}
+
+// Phase 2 of the statistics: finish_stats of merged (2C + 1) doubles, the
+// global batch's mean and variance (the row count after them is unread).
+__global__ void bn_live_coef(const double* __restrict__ merged, const float* __restrict__ gamma_bn,
+                             const float* __restrict__ beta_bn, const float* __restrict__ gamma_s,
+                             const float* __restrict__ beta_s, float eps,
+                             float* __restrict__ mean_out, float* __restrict__ var_out,
+                             float* __restrict__ coef, int c) {
+  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ch < c)
+    finish_stats(ch, c, merged[ch], merged[c + ch], eps, gamma_bn, beta_bn, gamma_s, beta_s,
+                 mean_out, var_out, coef);
 }
 
 // y = [relu](x * A + B), coef (3, C): inv, A, B.
@@ -289,7 +353,8 @@ bn_live_apply(const T* __restrict__ x, const float* __restrict__ coef, T* __rest
 // Backward reduction: S1, S2 a channel, then the gradients and dx's
 // coefficients. Partials as the statistics' (S1 then S2 sums of a block).
 // Outputs: grads (4, C): dgamma_bn, dbeta_bn, dgamma_s, dbeta_s (the last
-// two zero without a Scale); dcoef (3, C): c1, c0, c2.
+// two zero without a Scale); dcoef (3, C): c1, c0, c2; or, given `sums`
+// (phase 1), S1 and S2 in double there, (2, C), unfinished.
 // ---------------------------------------------------------------------------
 template <typename T, int VEC, bool RELU>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -298,7 +363,8 @@ bn_live_bwd_reduce(const T* __restrict__ g, const T* __restrict__ x,
                    const float* __restrict__ gamma_bn, const float* __restrict__ beta_bn,
                    const float* __restrict__ gamma_s, float* __restrict__ partial,
                    unsigned int* __restrict__ counters, float* __restrict__ grads,
-                   float* __restrict__ dcoef, long long rows, int c, long long rows_per_block) {
+                   float* __restrict__ dcoef, double* __restrict__ sums, long long rows, int c,
+                   long long rows_per_block) {
   using P = typename Packed<T, VEC>::type;
   __shared__ __align__(16) float red[2][kThreads * kMaxVec];
   __shared__ double fold[2 * kThreads];
@@ -383,20 +449,28 @@ bn_live_bwd_reduce(const T* __restrict__ g, const T* __restrict__ x,
       [&](int k, double S1, double S2) {
         const int ch = blockIdx.y * width + k;
         if (ch >= c) return;
-        const double gb = gamma_bn[ch];
-        const double gs = gamma_s != nullptr ? (double)gamma_s[ch] : 1.0;
-        grads[ch] = (float)(gs * S2);
-        grads[c + ch] = (float)(gs * S1);
-        grads[2 * c + ch] = gamma_s != nullptr ? (float)(gb * S2 + (double)beta_bn[ch] * S1) : 0.f;
-        grads[3 * c + ch] = gamma_s != nullptr ? (float)S1 : 0.f;
-        const double n = (double)rows;
-        const double iv = coef[ch];
-        const double c1 = gb * gs * iv;
-        dcoef[ch] = (float)c1;
-        dcoef[c + ch] = (float)(-c1 * S1 / n);
-        dcoef[2 * c + ch] = (float)(-c1 * S2 * iv / n);
+        if (sums != nullptr) {
+          sums[ch] = S1;
+          sums[c + ch] = S2;
+        } else {
+          finish_grads(ch, c, S1, S2, S1, S2, (double)rows, coef, gamma_bn, beta_bn, gamma_s, grads,
+                       dcoef);
+        }
       });
   if (threadIdx.x == 0 && threadIdx.y == 0) counters[blockIdx.y] = 0;
+}
+
+// Phase 2 of the backward reduction: finish_grads of this rank's sums (2,
+// C) and the merged (2C + 1) doubles, the global S1, S2 and row count.
+__global__ void bn_live_bwd_coef(const double* __restrict__ sums, const double* __restrict__ merged,
+                                 const float* __restrict__ coef, const float* __restrict__ gamma_bn,
+                                 const float* __restrict__ beta_bn,
+                                 const float* __restrict__ gamma_s, float* __restrict__ grads,
+                                 float* __restrict__ dcoef, int c) {
+  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ch < c)
+    finish_grads(ch, c, sums[ch], sums[c + ch], merged[ch], merged[c + ch], merged[2 * c], coef,
+                 gamma_bn, beta_bn, gamma_s, grads, dcoef);
 }
 
 // dx = c1 * g' + c0 + c2 * (x - mean).
@@ -494,114 +568,147 @@ bool fits(const Geometry& geo, int vec) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+constexpr int kCoefThreads = 256;
+
+// The forward's arguments, as hdu_bn_live_forward takes them.
+struct Fwd {
+  const void* x;
+  const float *gamma_bn, *beta_bn, *gamma_s, *beta_s;
+  float eps;
+  void* y;
+  float *mean, *var, *coef;
+  double* moments;
+  long long rows;
+  int c;
+  void* scratch;
+  cudaStream_t stream;
+};
+
 template <typename T, int VEC>
-int forward(const void* x, const float* gbn, const float* bbn, const float* gs, const float* bs,
-            float eps, int relu, void* y, float* mean, float* var, float* coef, long long rows,
-            int c, void* scratch, cudaStream_t stream) {
-  const Geometry st = geometry(rows, c, VEC, 2, 2);
-  if (!fits(st, VEC)) return (int)cudaErrorInvalidValue;
-  bn_live_stats<T, VEC><<<dim3(st.blocks, st.tiles), dim3(st.tx, st.ty), 0, stream>>>(
-      static_cast<const T*>(x), gbn, bbn, gs, bs, eps, hdu::partials(scratch),
-      hdu::counters(scratch), mean, var, coef, rows, c, st.rows_per_block);
+int forward(int phase, int relu, const Fwd& a) {
+  if (phase == 2) {
+    bn_live_coef<<<(a.c + kCoefThreads - 1) / kCoefThreads, kCoefThreads, 0, a.stream>>>(
+        a.moments, a.gamma_bn, a.beta_bn, a.gamma_s, a.beta_s, a.eps, a.mean, a.var, a.coef, a.c);
+  } else {
+    const Geometry st = geometry(a.rows, a.c, VEC, 2, 2);
+    if (!fits(st, VEC)) return (int)cudaErrorInvalidValue;
+    bn_live_stats<T, VEC><<<dim3(st.blocks, st.tiles), dim3(st.tx, st.ty), 0, a.stream>>>(
+        static_cast<const T*>(a.x), a.gamma_bn, a.beta_bn, a.gamma_s, a.beta_s, a.eps,
+        hdu::partials(a.scratch), hdu::counters(a.scratch), a.mean, a.var, a.coef,
+        phase == 1 ? a.moments : nullptr, a.rows, a.c, st.rows_per_block);
+  }
   const int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  const Geometry ap = geometry(rows, c, VEC, 2, 0);
+  if (rc != 0 || phase == 1) return rc;
+  const Geometry ap = geometry(a.rows, a.c, VEC, 2, 0);
   const dim3 grid(ap.blocks, ap.tiles), block(ap.tx, ap.ty);
   if (relu)
-    bn_live_apply<T, VEC, true><<<grid, block, 0, stream>>>(
-        static_cast<const T*>(x), coef, static_cast<T*>(y), rows, c, ap.rows_per_block);
+    bn_live_apply<T, VEC, true><<<grid, block, 0, a.stream>>>(
+        static_cast<const T*>(a.x), a.coef, static_cast<T*>(a.y), a.rows, a.c, ap.rows_per_block);
   else
-    bn_live_apply<T, VEC, false><<<grid, block, 0, stream>>>(
-        static_cast<const T*>(x), coef, static_cast<T*>(y), rows, c, ap.rows_per_block);
+    bn_live_apply<T, VEC, false><<<grid, block, 0, a.stream>>>(
+        static_cast<const T*>(a.x), a.coef, static_cast<T*>(a.y), a.rows, a.c, ap.rows_per_block);
   return (int)cudaGetLastError();
 }
 
+// The backward's arguments, as hdu_bn_live_backward takes them.
+struct Bwd {
+  const void *g, *x;
+  const float *mean, *coef, *gamma_bn, *beta_bn, *gamma_s;
+  void* dx;
+  float *grads, *dcoef;
+  double* sums;
+  const double* merged;
+  long long rows;
+  int c;
+  void* scratch;
+  cudaStream_t stream;
+};
+
 template <typename T, int VEC, bool RELU>
-int backward(const void* g, const void* x, const float* mean, const float* coef,
-             const float* gbn, const float* bbn, const float* gs, void* dx, float* grads,
-             float* dcoef, long long rows, int c, void* scratch, cudaStream_t stream) {
-  const Geometry rd = geometry(rows, c, VEC, 1, 2);
-  if (!fits(rd, VEC)) return (int)cudaErrorInvalidValue;
-  bn_live_bwd_reduce<T, VEC, RELU><<<dim3(rd.blocks, rd.tiles), dim3(rd.tx, rd.ty), 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), mean, coef, gbn, bbn, gs,
-      hdu::partials(scratch), hdu::counters(scratch), grads, dcoef, rows, c, rd.rows_per_block);
+int backward(int phase, const Bwd& a) {
+  if (phase == 2) {
+    bn_live_bwd_coef<<<(a.c + kCoefThreads - 1) / kCoefThreads, kCoefThreads, 0, a.stream>>>(
+        a.sums, a.merged, a.coef, a.gamma_bn, a.beta_bn, a.gamma_s, a.grads, a.dcoef, a.c);
+  } else {
+    const Geometry rd = geometry(a.rows, a.c, VEC, 1, 2);
+    if (!fits(rd, VEC)) return (int)cudaErrorInvalidValue;
+    bn_live_bwd_reduce<T, VEC, RELU><<<dim3(rd.blocks, rd.tiles), dim3(rd.tx, rd.ty), 0, a.stream>>>(
+        static_cast<const T*>(a.g), static_cast<const T*>(a.x), a.mean, a.coef, a.gamma_bn,
+        a.beta_bn, a.gamma_s, hdu::partials(a.scratch), hdu::counters(a.scratch), a.grads, a.dcoef,
+        phase == 1 ? a.sums : nullptr, a.rows, a.c, rd.rows_per_block);
+  }
   const int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  const Geometry ap = geometry(rows, c, VEC, 1, 0);
-  bn_live_bwd_apply<T, VEC, RELU><<<dim3(ap.blocks, ap.tiles), dim3(ap.tx, ap.ty), 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), mean, coef, dcoef,
-      static_cast<T*>(dx), rows, c, ap.rows_per_block);
+  if (rc != 0 || phase == 1) return rc;
+  const Geometry ap = geometry(a.rows, a.c, VEC, 1, 0);
+  bn_live_bwd_apply<T, VEC, RELU><<<dim3(ap.blocks, ap.tiles), dim3(ap.tx, ap.ty), 0, a.stream>>>(
+      static_cast<const T*>(a.g), static_cast<const T*>(a.x), a.mean, a.coef, a.dcoef,
+      static_cast<T*>(a.dx), a.rows, a.c, ap.rows_per_block);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int backward_dispatch(int vec, int relu, const void* g, const void* x, const float* mean,
-                      const float* coef, const float* gbn, const float* bbn, const float* gs,
-                      void* dx, float* grads, float* dcoef, long long rows, int c, void* scratch,
-                      cudaStream_t s) {
+int backward_dispatch(int phase, int vec, int relu, const Bwd& a) {
   constexpr int V = 16 / sizeof(T);
-  if (vec)
-    return relu ? backward<T, V, true>(g, x, mean, coef, gbn, bbn, gs, dx, grads, dcoef, rows, c,
-                                       scratch, s)
-                : backward<T, V, false>(g, x, mean, coef, gbn, bbn, gs, dx, grads, dcoef, rows,
-                                        c, scratch, s);
-  return relu ? backward<T, 1, true>(g, x, mean, coef, gbn, bbn, gs, dx, grads, dcoef, rows, c,
-                                     scratch, s)
-              : backward<T, 1, false>(g, x, mean, coef, gbn, bbn, gs, dx, grads, dcoef, rows, c,
-                                      scratch, s);
+  if (vec) return relu ? backward<T, V, true>(phase, a) : backward<T, V, false>(phase, a);
+  return relu ? backward<T, 1, true>(phase, a) : backward<T, 1, false>(phase, a);
+}
+
+bool bad_phase(int phase, const void* buffer) {
+  return phase < 0 || phase > 2 || (phase != 0 && buffer == nullptr);
 }
 
 }  // namespace
 
 // x, y: (rows, C), dtype 0 = float32, 1 = bfloat16. gamma_bn, beta_bn: (C,)
-// fp32; gamma_s, beta_s: (C,) fp32, or both null without a Scale. Writes
-// mean and var (C,) fp32 and coef (3, C) fp32 (inv, A, B), then y. The
-// 16-byte path runs when C is a multiple of 16 / sizeof(dtype) and x and y
-// are 16-byte aligned, the scalar path otherwise. scratch:
-// hdu_scratch_bytes() bytes of the calling stream (common.cuh). Two
-// launches.
-extern "C" int hdu_bn_live_forward(const void* x, const float* gamma_bn, const float* beta_bn,
-                                   const float* gamma_s, const float* beta_s, float eps,
-                                   int relu, void* y, float* mean, float* var, float* coef,
-                                   long long rows, int c, int dtype, void* scratch,
-                                   void* stream) {
+// fp32; gamma_s, beta_s: (C,) fp32, or both null without a Scale. phase 0
+// (one rank, two launches): writes mean and var (C,) fp32 and coef (3, C)
+// fp32 (inv, A, B), then y. phase 1: writes this rank's mean and biased
+// variance over its rows, unrounded, to moments (2, C) fp64, and nothing
+// else. phase 2: moments holds the merged (2C + 1) fp64 (the global mean
+// and variance, then the global row count); writes mean, var, coef and y
+// as phase 0 does. The 16-byte path runs when C is a multiple of 16 /
+// sizeof(dtype) and x and y are 16-byte aligned, the scalar path otherwise.
+// scratch: hdu_scratch_bytes() bytes of the calling stream (common.cuh).
+extern "C" int hdu_bn_live_forward(int phase, const void* x, const float* gamma_bn,
+                                   const float* beta_bn, const float* gamma_s,
+                                   const float* beta_s, float eps, int relu, void* y, float* mean,
+                                   float* var, float* coef, double* moments, long long rows, int c,
+                                   int dtype, void* scratch, void* stream) {
   if (c <= 0 || rows <= 0 || (dtype != 0 && dtype != 1) || scratch == nullptr ||
-      (gamma_s == nullptr) != (beta_s == nullptr))
+      (gamma_s == nullptr) != (beta_s == nullptr) || bad_phase(phase, moments))
     return (int)cudaErrorInvalidValue;
   const int elem = dtype == 0 ? 4 : 2;
   const int vec = c % (16 / elem) == 0 && aligned16(x) && aligned16(y);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return vec ? forward<float, 4>(x, gamma_bn, beta_bn, gamma_s, beta_s, eps, relu, y, mean, var,
-                                   coef, rows, c, scratch, s)
-               : forward<float, 1>(x, gamma_bn, beta_bn, gamma_s, beta_s, eps, relu, y, mean, var,
-                                   coef, rows, c, scratch, s);
-  return vec ? forward<__nv_bfloat16, 8>(x, gamma_bn, beta_bn, gamma_s, beta_s, eps, relu, y, mean,
-                                         var, coef, rows, c, scratch, s)
-             : forward<__nv_bfloat16, 1>(x, gamma_bn, beta_bn, gamma_s, beta_s, eps, relu, y, mean,
-                                         var, coef, rows, c, scratch, s);
+  const Fwd a{x,    gamma_bn, beta_bn, gamma_s, beta_s,  eps,     y, mean,
+              var,  coef,     moments, rows,    c,       scratch, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return vec ? forward<float, 4>(phase, relu, a) : forward<float, 1>(phase, relu, a);
+  return vec ? forward<__nv_bfloat16, 8>(phase, relu, a) : forward<__nv_bfloat16, 1>(phase, relu, a);
 }
 
 // g, x, dx: (rows, C) in one dtype (0 = float32, 1 = bfloat16); mean (C,)
 // and coef (3, C) as the forward wrote them; gamma_bn, beta_bn (C,) fp32;
-// gamma_s (C,) fp32 or null without a Scale. Writes grads (4, C) fp32
-// (dgamma_bn, dbeta_bn, dgamma_s, dbeta_s; the last two zero without a
-// Scale) and dcoef
-// (3, C) fp32, then dx. The 16-byte path runs when C is a multiple of 16 /
-// sizeof(dtype) and g, x and dx are 16-byte aligned. Two launches.
-extern "C" int hdu_bn_live_backward(const void* g, const void* x, const float* mean,
+// gamma_s (C,) fp32 or null without a Scale. phase 0 (one rank, two
+// launches): writes grads (4, C) fp32 (dgamma_bn, dbeta_bn, dgamma_s,
+// dbeta_s; the last two zero without a Scale) and dcoef (3, C) fp32, then
+// dx. phase 1: writes this rank's S1 and S2, unrounded, to sums (2, C) fp64,
+// and nothing else. phase 2: sums as phase 1 wrote them, merged the (2C +
+// 1) fp64 global S1, S2 and row count; grads from sums (this rank's share,
+// which the trainer's all-reduce adds), dx from merged. The 16-byte path
+// runs when C is a multiple of 16 / sizeof(dtype) and g, x and dx are
+// 16-byte aligned.
+extern "C" int hdu_bn_live_backward(int phase, const void* g, const void* x, const float* mean,
                                     const float* coef, const float* gamma_bn,
                                     const float* beta_bn, const float* gamma_s, int relu,
-                                    void* dx, float* grads, float* dcoef, long long rows, int c,
-                                    int dtype, void* scratch, void* stream) {
-  if (c <= 0 || rows <= 0 || (dtype != 0 && dtype != 1) || scratch == nullptr)
+                                    void* dx, float* grads, float* dcoef, double* sums,
+                                    const double* merged, long long rows, int c, int dtype,
+                                    void* scratch, void* stream) {
+  if (c <= 0 || rows <= 0 || (dtype != 0 && dtype != 1) || scratch == nullptr ||
+      bad_phase(phase, sums) || (phase == 2 && merged == nullptr))
     return (int)cudaErrorInvalidValue;
   const int elem = dtype == 0 ? 4 : 2;
   const int vec = c % (16 / elem) == 0 && aligned16(g) && aligned16(x) && aligned16(dx);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return backward_dispatch<float>(vec, relu, g, x, mean, coef, gamma_bn, beta_bn, gamma_s, dx,
-                                    grads, dcoef, rows, c, scratch, s);
-  return backward_dispatch<__nv_bfloat16>(vec, relu, g, x, mean, coef, gamma_bn, beta_bn, gamma_s,
-                                          dx, grads, dcoef, rows, c, scratch, s);
+  const Bwd a{g,    x,      mean, coef, gamma_bn, beta_bn, gamma_s, dx, grads,
+              dcoef, sums, merged, rows, c,   scratch,  static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return backward_dispatch<float>(phase, vec, relu, a);
+  return backward_dispatch<__nv_bfloat16>(phase, vec, relu, a);
 }

@@ -19,8 +19,9 @@ with batch statistics and write their new moving statistics into
 device) and each element's index, and ``ctx.remat`` checkpoints every conv
 block (:func:`maybe_remat`). Under a data-parallel ``ctx.mesh`` of several
 ranks (``core/mesh.py``) each rank holds its rows of the global batch: live
-statistics are the global batch's, and each rank's dropout mask is its rows
-of the mask one process would draw.
+statistics are the global batch's (K6 merges them across ``ctx.group``,
+:func:`live_bn`), and each rank's dropout mask is its rows of the mask one
+process would draw.
 
 Nothing in a training step reads the device back or draws from a host
 generator, so a step can be captured in a CUDA graph and replayed
@@ -51,7 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..core.mesh import all_reduce_sum, axis_group, axis_rank, axis_size
+from ..core.mesh import axis_group, axis_rank, axis_size
 from ..ops import affine_gemm as K5
 from ..ops.bn_live import BNLive
 from ..ops.fused_affine import AffineReLU, fold_bn_scale
@@ -328,14 +329,13 @@ class BatchNorm(nn.Module):
     """Keras-2.0.8-semantics BatchNormalization (layers.py:142-184).
 
     With a training ``ctx`` and ``frozen`` False it normalises with the
-    batch's float32 mean and biased variance over every axis but channels,
+    batch's float32 mean and biased variance over every axis but channels
+    (the global batch's under a mesh of several ranks) through K6
+    (:func:`live_bn`), which applies the affine in float32 and rounds once,
     and writes ``momentum*moving + (1-momentum)*batch`` into
-    ``ctx.new_stats``: on one rank through K6 (:func:`live_bn`), which
-    applies the affine in float32 and rounds once; under a mesh of several
-    ranks the batch is the global one (:func:`global_moments`). Otherwise
-    (inference, or the hybrid's frozen 2D branch) it uses the moving
-    statistics. Outside K6 the affine is folded in float32 and applied in
-    x's dtype.
+    ``ctx.new_stats``. Otherwise (inference, or the hybrid's frozen 2D
+    branch) it uses the moving statistics, the affine folded in float32 and
+    applied in x's dtype.
     """
 
     def __init__(self, c, *, eps=1e-3, momentum=0.99, device=None):
@@ -353,16 +353,10 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, ctx: Ctx | None = None, *, frozen: bool = False):
         if ctx is not None and not frozen:
-            if ctx.group is None:
-                return live_bn(x, self, None, ctx, relu=False)
-            dims = [d for d in range(x.dim()) if d != 1]
-            mean, var = global_moments(x.float(), dims, ctx.group)
-            self.record(ctx, mean, var)
-        else:
-            mean, var = self.moving_mean, self.moving_variance
+            return live_bn(x, self, None, ctx, relu=False)
         # affine folded in float32, applied in the tensor's own dtype
-        inv = torch.rsqrt(var.float() + self.eps) * self.gamma.float()
-        shift = self.beta.float() - mean.float() * inv
+        inv = torch.rsqrt(self.moving_variance.float() + self.eps) * self.gamma.float()
+        shift = self.beta.float() - self.moving_mean.float() * inv
         shape = [1] * x.dim()
         shape[1] = -1
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
@@ -381,11 +375,11 @@ def live_bn(x, bn: BatchNorm, sc: Scale | None, ctx: Ctx, *, relu: bool):
     """bn with the batch's statistics, then sc when given, then the ReLU
     when ``relu``, as one K6 call (``ops/bn_live.py``: the kernels on the
     card, the plain version on the CPU), whose batch mean and variance bn
-    records in ``ctx.new_stats``. One rank only: under a mesh of several
-    the statistics need an all-reduce (:func:`global_moments`)."""
+    records in ``ctx.new_stats``. Under a mesh of several ranks K6 merges
+    the statistics across ``ctx.group``, so they are the global batch's."""
     y, mean, var = BNLive.apply(
         x, bn.gamma, bn.beta, None if sc is None else sc.gamma, None if sc is None else sc.beta,
-        bn.eps, relu,
+        bn.eps, relu, ctx.group,
     )
     bn.record(ctx, mean, var)
     return y
@@ -393,28 +387,11 @@ def live_bn(x, bn: BatchNorm, sc: Scale | None, ctx: Ctx, *, relu: bool):
 
 def bn_relu(x, bn: BatchNorm, ctx: Ctx | None = None, *, frozen: bool = False):
     """``relu(bn(x, ctx, frozen=frozen))``, the decoders' and the head's
-    BN -> ReLU: with live statistics on one rank, one K6 call with the ReLU
-    inside (:func:`live_bn`)."""
-    if ctx is not None and not frozen and ctx.group is None:
+    BN -> ReLU: with live statistics, one K6 call with the ReLU inside
+    (:func:`live_bn`)."""
+    if ctx is not None and not frozen:
         return live_bn(x, bn, None, ctx, relu=True)
     return torch.relu(bn(x, ctx, frozen=frozen))
-
-
-def global_moments(x, dims, group):
-    """Per-channel mean and biased variance of ``x`` over ``dims`` of every
-    rank's rows together, in the two passes of ``jnp.var`` on a sharded
-    batch (layers.py:166-174): one all-reduce of the sums and the element
-    count, then one of the squared deviations from the global mean. Both
-    are differentiable, so gradients reach every rank's rows through the
-    statistics as they do in JAX."""
-    shape = [1] * x.dim()
-    shape[1] = -1
-    n = x.numel() // x.shape[1]
-    sums = all_reduce_sum(torch.cat([x.sum(dims), x.new_full((1,), float(n))]), group)
-    count = sums[-1]
-    mean = sums[:-1] / count
-    var = all_reduce_sum(((x - mean.view(shape)) ** 2).sum(dims), group) / count
-    return mean, var
 
 
 class Scale(nn.Module):
@@ -454,17 +431,13 @@ def bn_scale_relu(
     """BN -> Scale -> [ReLU] in front of every encoder conv (layers.py:187-222).
 
     Live statistics (a training ``ctx``, not ``frozen``): one K6 call
-    (:func:`live_bn`) on one rank; under a mesh of several, BN's
-    all-reduced statistics, then Scale and ReLU as plain ops. Frozen or
-    inference statistics: one folded affine through K1
-    (:class:`AffineReLU`, differentiable into the BN and Scale leaves). At
-    inference the pair folded by :meth:`Scale.freeze` is used if there is one.
+    (:func:`live_bn`). Frozen or inference statistics: one folded affine
+    through K1 (:class:`AffineReLU`, differentiable into the BN and Scale
+    leaves). At inference the pair folded by :meth:`Scale.freeze` is used if
+    there is one.
     """
     if ctx is not None and not frozen:
-        if ctx.group is None:
-            return live_bn(x, bn, sc, ctx, relu=relu_after)
-        y = sc(bn(x, ctx))
-        return torch.relu(y) if relu_after else y
+        return live_bn(x, bn, sc, ctx, relu=relu_after)
     a, b = folded_pair(bn, sc, ctx)
     return AffineReLU.apply(x, a, b, relu_after)
 

@@ -4,11 +4,13 @@
 On the CPU: the plain version, forward and backward, against autograd of
 the three-op chain (BatchNorm, Scale, ReLU) in float64; the moving
 statistics as the chain wrote them; remat on and off; a mesh of several
-ranks keeping ``global_moments``; a CUDA tensor not rows-contiguous
-refused; the ``bn_live`` count of a step. On the card (the ``cuda``
-fixture): the kernels against the plain version at the training cells'
-shapes, two calls the same bits, a captured graph's replay equal to the
-eager call.
+ranks calling K6 with its group; the merge of 2, 3 and 4 ranks' moments
+against the whole batch's; the two-phase path with an identity merge
+giving the one-rank bits; a CUDA tensor not rows-contiguous refused; the
+``bn_live`` count of a step. On the card (the ``cuda`` fixture): the
+kernels against the plain version at the training cells' shapes, two
+calls the same bits, phase 1 then phase 2 the bits of one call, a
+captured graph's replay equal to the eager call.
 """
 from __future__ import annotations
 
@@ -153,10 +155,10 @@ def test_same_step_with_remat_on_and_off(policy):
         assert all(torch.equal(a, b) for a, b in zip(stats0[bn], stats1[bn]))
 
 
-def test_several_ranks_keep_global_moments(monkeypatch):
+def test_several_ranks_call_k6_with_the_group(monkeypatch):
     """Under a mesh of several ranks (``ctx.group`` set) BatchNorm,
-    bn_scale_relu and bn_relu take ``global_moments`` and the plain ops,
-    never K6."""
+    bn_scale_relu and bn_relu each make one K6 call, ``BNLive`` given the
+    group, which merges their statistics across ranks."""
     gen = torch.Generator().manual_seed(4)
     c = 8
     x = _rows_layout(torch.randn((2, c, 4, 4), generator=gen))
@@ -167,17 +169,13 @@ def test_several_ranks_keep_global_moments(monkeypatch):
         bn.moving_mean.zero_()
         bn.moving_variance.fill_(1.0)
     seen = []
+    apply = K.BNLive.apply
 
-    def moments(xf, dims, group):
-        seen.append(group)
-        var, mean = torch.var_mean(xf, dim=dims, correction=0)
-        return mean, var
+    def spy(*args):
+        seen.append((args[3] is sc.gamma, args[6], args[7]))
+        return apply(*args[:7])
 
-    def refuse(*args):
-        raise AssertionError("K6 under a mesh of several ranks")
-
-    monkeypatch.setattr(L, "global_moments", moments)
-    monkeypatch.setattr(K.BNLive, "apply", refuse)
+    monkeypatch.setattr(K.BNLive, "apply", spy)
     group = object()
     for call in (lambda ctx: bn(x, ctx), lambda ctx: L.bn_scale_relu(x, bn, sc, ctx=ctx),
                  lambda ctx: L.bn_relu(x, bn, ctx)):
@@ -185,7 +183,58 @@ def test_several_ranks_keep_global_moments(monkeypatch):
         ctx.group = group
         y = call(ctx)
         assert y.shape == x.shape and bn in ctx.new_stats
-    assert seen == [group] * 3
+    assert seen == [(False, False, group), (True, True, group), (False, True, group)]
+
+
+@pytest.mark.parametrize("ranks", [2, 3, 4])
+def test_merged_moments_are_the_whole_batch(ranks):
+    """``fold_moments`` of the rows ``merge_moments`` all-reduces (each
+    rank's float64 mean, biased variance and row count, ranks of unequal
+    rows) against torch.var_mean of the whole batch in float64."""
+    gen = torch.Generator().manual_seed(ranks)
+    c = 7
+    x = 3.0 + 2.0 * torch.randn((6 * ranks + 1, c), generator=gen, dtype=torch.float64)
+    rows = []
+    for part in torch.tensor_split(x, ranks):
+        var, mean = torch.var_mean(part, dim=0, correction=0)
+        rows.append(torch.cat([mean, var, part.new_tensor([len(part)])]))
+    merged = K.fold_moments(torch.stack(rows))
+    want_var, want_mean = torch.var_mean(x, dim=0, correction=0)
+    torch.testing.assert_close(merged[:c], want_mean, rtol=1e-14, atol=1e-14)
+    torch.testing.assert_close(merged[c:2 * c], want_var, rtol=1e-13, atol=1e-14)
+    assert float(merged[-1]) == len(x)
+
+
+def _identity_merge(monkeypatch):
+    """A merge over one rank: this rank's sums and its row count, as the
+    (2C + 1) float64 that ``merge_moments``/``merge_sums`` return."""
+    def merge(local, rows, group):
+        return torch.cat([local.reshape(-1).double(), local.new_tensor([rows], dtype=torch.float64)])
+
+    monkeypatch.setattr(K, "merge_moments", merge)
+    monkeypatch.setattr(K, "merge_sums", merge)
+
+
+def _both_ways(x, g, gb, bb, gs, bs, relu, group):
+    y, mean, var, coef = K.bn_live_forward(x, gb, bb, gs, bs, eps=EPS, relu=relu, group=group)
+    dx, grads = K.bn_live_backward(g, x, mean, coef, gb, bb, gs, relu=relu, group=group)
+    return y, mean, var, coef, dx, grads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_phases_with_an_identity_merge_give_one_rank_bits(monkeypatch, dtype):
+    """The plain version's several-rank path (statistics, merge, apply;
+    S1/S2, merge, dx) with a merge over one rank: every output the one-rank
+    path's bits, forward and backward, with and without Scale and ReLU."""
+    _identity_merge(monkeypatch)
+    gen = torch.Generator().manual_seed(9)
+    x = _rows_layout((0.5 + 2 * torch.randn((3, 12, 5, 4), generator=gen)).to(dtype))
+    g = torch.randn(x.shape, generator=gen).to(dtype)
+    gb, bb, gs, bs = _params(12, gen, torch.float32)
+    for scale, relu in ((True, True), (False, False)):
+        args = (x, g, gb, bb, gs if scale else None, bs if scale else None, relu)
+        for a, b in zip(_both_ways(*args, None), _both_ways(*args, object())):
+            assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 class _CudaLike(torch.Tensor):
@@ -350,6 +399,28 @@ def test_cuda_two_calls_are_the_same_bits(cuda):
         torch.cuda.synchronize()
         for a, b in zip(first, second):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_cuda_phase_1_then_phase_2_give_the_bits_of_one_call(cuda, monkeypatch, which):
+    """The several-rank entry points, phase 1 (the reduction's unrounded
+    double sums) then phase 2 (their finish and the apply) with an identity
+    merge between them: the bits of the one-rank call (phase 0) at every
+    card shape, forward or backward."""
+    for rows, c, dtype, scale, relu in CARD_SHAPES:
+        x, g, gb, bb, gs, bs = _card_case(rows, c, dtype, scale, cuda, seed=3)
+        one = _run(x, g, gb, bb, gs, bs, relu)
+        with monkeypatch.context() as m:
+            _identity_merge(m)
+            if which == "forward":
+                two = K.bn_live_forward(x, gb, bb, gs, bs, eps=EPS, relu=relu, group=object())
+                one = one[:4]
+            else:
+                two = K.bn_live_backward(g, x, one[1], one[3], gb, bb, gs, relu=relu, group=object())
+                one = one[4:]
+        torch.cuda.synchronize()
+        for a, b in zip(one, two):
+            assert torch.equal(a, b), (rows, c, dtype)
 
 
 def test_cuda_graph_replay_equals_the_eager_call(cuda):

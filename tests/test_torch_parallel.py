@@ -7,8 +7,9 @@ dropout mask. The rest run two real gloo ranks, this file run as a script
 (``python tests/test_torch_parallel.py '<json>'``) in two processes that
 meet at a ``file://`` store under the test's tmp_path, each with a wall
 limit: the batch helpers' rows and errors against JAX's on a 2-device mesh,
-``replicate`` and the flat all-reduce, and the global BatchNorm moments and
-K2 loss sums, gradients included, against one process over the whole batch.
+``replicate`` and the flat all-reduce, and live BatchNorm∘Scale∘ReLU (K6's
+plain version, its statistics and S1/S2 merged across the ranks) and K2's
+loss sums, gradients included, against one process over the whole batch.
 
 :func:`run_ranks` is also the launcher of tests/test_torch_dp_*.py.
 """
@@ -28,6 +29,7 @@ import torch
 
 from hdenseunet_tpu_torch.core import mesh as M
 from hdenseunet_tpu_torch.models import layers as L
+from hdenseunet_tpu_torch.ops.bn_live import BNLive
 from hdenseunet_tpu_torch.ops.wce import weighted_ce
 from hdenseunet_tpu_torch.parallel import multihost as H
 
@@ -84,32 +86,32 @@ def join(job: dict) -> None:
 
 
 def _global_inputs():
-    """Seeded whole-batch inputs of the moments and loss checks."""
+    """Seeded whole-batch inputs of the live BN and loss checks."""
     rng = np.random.default_rng(5)
     x = rng.normal(1.0, 2.0, (GLOBAL_ROWS, 3, 5, 6)).astype(np.float32)
     w = rng.normal(0.0, 1.0, x.shape).astype(np.float32)
     logits = rng.normal(0.0, 3.0, (GLOBAL_ROWS * 7, 3)).astype(np.float32)
     labels = rng.integers(0, 3, GLOBAL_ROWS * 7).astype(np.int32)
     mask = (rng.random(GLOBAL_ROWS * 7) < 0.7).astype(np.float32)
-    return x, w, logits, labels, mask
+    params = rng.normal((1.0, 0.0, 1.0, 0.0), 0.4, (3, 4)).T.astype(np.float32)
+    return x, w, logits, labels, mask, params
 
 
-def _moments_and_loss(x, w, logits, labels, mask, group):
-    """Normalised-and-weighted sum of x through its (global) moments, and
-    the weighted CE; returns values and the inputs' gradients."""
+def _live_bn_and_loss(x, w, logits, labels, mask, params, group):
+    """Live BatchNorm∘Scale∘ReLU of x through K6 (``BNLive``, its plain
+    version; the global batch's statistics under ``group``) weighted and
+    summed, and the weighted CE; returns values and gradients, the BN and
+    Scale leaves' this rank's share."""
     xt = torch.tensor(x, requires_grad=True)
-    dims = [0, 2, 3]
-    if group is None:
-        var, mean = torch.var_mean(xt, dim=dims, correction=0)
-    else:
-        mean, var = L.global_moments(xt, dims, group)
-    y = (xt - mean.view(1, -1, 1, 1)) * torch.rsqrt(var.view(1, -1, 1, 1) + EPS)
+    leaves = [torch.tensor(p, requires_grad=True) for p in params]  # gamma_bn, beta_bn, gamma_s, beta_s
+    y, mean, var = BNLive.apply(xt, *leaves, EPS, True, group)
     (y * torch.tensor(w)).sum().backward()
     lt = torch.tensor(logits, requires_grad=True)
     loss = weighted_ce(lt, torch.tensor(labels), torch.tensor(mask), (0.78, 0.65, 8.57), group)
     loss.backward()
-    return dict(mean=mean.detach().numpy(), var=var.detach().numpy(), x_grad=xt.grad.numpy(),
-                loss=float(loss.detach()), logits_grad=lt.grad.numpy())
+    return dict(y=y.detach().numpy(), mean=mean.numpy(), var=var.numpy(), x_grad=xt.grad.numpy(),
+                leaf_grads=np.stack([t.grad.numpy() for t in leaves]), loss=float(loss.detach()),
+                logits_grad=lt.grad.numpy())
 
 
 def worker(job: dict) -> None:
@@ -139,11 +141,11 @@ def worker(job: dict) -> None:
     out["summed"] = (a.numpy(), b.numpy())
     dt = H.global_batch_from_local(mesh, {"image": np.zeros((2, 5), np.float32)})["image"]
     out["dtensor"] = (tuple(dt.shape), tuple(dt.to_local().shape))
-    x, w, logits, labels, mask = _global_inputs()
+    x, w, logits, labels, mask, params = _global_inputs()
     n, m = GLOBAL_ROWS // world, len(logits) // world
-    out["dp"] = _moments_and_loss(
+    out["dp"] = _live_bn_and_loss(
         x[rank * n:(rank + 1) * n], w[rank * n:(rank + 1) * n], logits[rank * m:(rank + 1) * m],
-        labels[rank * m:(rank + 1) * m], mask[rank * m:(rank + 1) * m], group,
+        labels[rank * m:(rank + 1) * m], mask[rank * m:(rank + 1) * m], params, group,
     )
     torch.save(out, job["out"])
     torch.distributed.destroy_process_group()
@@ -336,18 +338,24 @@ def test_two_ranks_replicate_and_all_reduce(two_ranks):
         np.testing.assert_array_equal(out["summed"][1], np.full(3, 30.0))
 
 
-def test_two_ranks_global_moments_and_loss_match_one_process(two_ranks):
-    """BatchNorm's global moments and K2's global loss over two ranks'
-    rows equal one process's over the whole batch, and so do the inputs'
-    gradients through them (float32, summed in another order)."""
-    one = _moments_and_loss(*_global_inputs(), None)
+def test_two_ranks_live_bn_and_loss_match_one_process(two_ranks):
+    """Live BN∘Scale∘ReLU through K6 over two ranks' rows, its statistics
+    and S1/S2 merged across them, and K2's global loss equal one process's
+    over the whole batch: y, mean, var and x's gradient, the BN and Scale
+    leaves' gradients summed over the ranks (as the trainer's all-reduce
+    sums them), the loss and the logits' gradient (float32; the merge sums
+    in float64, one process in float32). The ranks' statistics and loss
+    agree bit for bit."""
+    one = _live_bn_and_loss(*_global_inputs(), None)
     a, b = (out["dp"] for out in two_ranks)
     for key in ("mean", "var", "loss"):
         assert np.array_equal(a[key], b[key]), key  # the ranks agree bit for bit
         np.testing.assert_allclose(a[key], one[key], rtol=1e-6, atol=1e-6, err_msg=key)
-    for key in ("x_grad", "logits_grad"):
+    for key in ("y", "x_grad", "logits_grad"):
         got = np.concatenate([a[key], b[key]])
         np.testing.assert_allclose(got, one[key], rtol=1e-5, atol=1e-6, err_msg=key)
+    np.testing.assert_allclose(a["leaf_grads"] + b["leaf_grads"], one["leaf_grads"], rtol=1e-5,
+                               atol=1e-5, err_msg="leaf_grads")
 
 
 if __name__ == "__main__":
