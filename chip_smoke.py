@@ -15,7 +15,10 @@ failure exits non-zero):
    row counts, K6 (training's live BN∘[Scale]∘[ReLU], forward and
    backward) at every live BN shape of the graphed training cells, timed
    from CUDA graph replays beside the pre-K6 ATen chain (also alone:
-   ``python3 chip_smoke.py k6``); each wrapper
+   ``python3 chip_smoke.py k6``), K7 (training's dropout, forward and
+   backward) at the dropout of each graphed training cell, bit for bit
+   against the ATen chain it replaced and timed from CUDA graph replays
+   beside it (also alone: ``python3 chip_smoke.py k7``); each wrapper
    call runs one kernel (torch.profiler); calls of other shapes queued back
    to back give the plain answers and the same bits when repeated (each
    kernel's last block resets the counter it took a ticket from);
@@ -212,7 +215,10 @@ runs with every launch counter set to 0 just before it and read just after
 (in the process that runs it), and fails if a kernel of that path did not
 launch. K6's counts are held on every path: on one rank, a forward for each
 live BN a step and each one remat recomputes, a backward for each live BN
-(``k6_per_step``), as many under a mesh of several ranks; 0 when serving. A replayed CUDA graph launches its kernels without the wrappers:
+(``k6_per_step``), as many under a mesh of several ranks; 0 when serving.
+K7's likewise: a forward and a backward a training step, the one dropout
+of every training forward (``k7_per_step``); 0 when serving. A replayed
+CUDA graph launches its kernels without the wrappers:
 train_graph_* counts the eager group's launches and the captured step's
 times its replays.
 """
@@ -283,6 +289,10 @@ REMAT_2D = 156  # of them inside the 78 rematerialised conv blocks
 BUILD = Path(__file__).resolve().parent / "build"
 K12_NAMES = ("affine_relu", "affine_relu_backward", "wce_forward", "wce_backward")
 K6_NAMES = ("bn_live_forward", "bn_live_backward")
+K7_NAMES = ("dropout_forward", "dropout_backward")
+# K7's shapes, bf16 at rate 0.3: hdu.train.end2end's HFF head and
+# d167.train.*'s decoder dropout
+SHAPES_K7 = (("end2end head", (8, 64, 224, 224, 8)), ("d167 decoder", (10, 64, 224, 224)))
 K4_NAMES = ("cc_label", "largest_component", "fill_holes", "compose_prep", "compose_finish")
 K4_SHAPE = (512, 512, 112)  # LiTS in-plane size, 112 slices
 K3_NAMES = ("window_accumulate", "score_finish")
@@ -470,12 +480,14 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def counters() -> dict:
-    from hdenseunet_tpu_torch.ops import affine_gemm as K5, bn_live as K6, cc, fused_affine as K, score as S, wce as W
+    from hdenseunet_tpu_torch.ops import affine_gemm as K5, bn_live as K6, cc, dropout as K7, fused_affine as K
+    from hdenseunet_tpu_torch.ops import score as S, wce as W
 
     return {
         "affine_relu": K.affine_relu, "affine_relu_backward": K.affine_relu_backward,
         "affine_gemm": K5.affine_gemm,
         "bn_live_forward": K6.bn_live_forward, "bn_live_backward": K6.bn_live_backward,
+        "dropout_forward": K7.dropout_forward, "dropout_backward": K7.dropout_backward,
         "wce_forward": W.wce_forward, "wce_backward": W.wce_backward,
         **{name: getattr(cc, name) for name in K4_NAMES},
         **{name: getattr(S, name) for name in K3_NAMES},
@@ -521,6 +533,20 @@ def k6_per_step(arch: str) -> dict:
            if isinstance(m, L.BatchNorm) and not name.startswith(frozen)]
     rerun = sum(name.endswith(("_x1_bn", "_x2_bn")) for name in bns) if remat else 0
     return dict(bn_live_forward=len(bns) + rerun, bn_live_backward=len(bns))
+
+
+def k7_per_step(arch: str) -> dict:
+    """K7 launches of one training step: a forward and a backward for the
+    one dropout of the forward, the 2D decoder's ('2d'; the legacy
+    skip-connection network's too) or the HFF head's ('end2end',
+    '3dpart'), outside every rematerialised block; none in DilatedResNet."""
+    n = 0 if arch == "dilated" else 1
+    return dict(dropout_forward=n, dropout_backward=n)
+
+
+def live_per_step(arch: str) -> dict:
+    """K6's and K7's launches of one training step."""
+    return {**k6_per_step(arch), **k7_per_step(arch)}
 
 
 def scaled(counts: dict, n: int) -> dict:
@@ -931,10 +957,64 @@ def check_k6(card: str) -> dict:
     }
 
 
-def k6_main() -> None:
-    """``python3 chip_smoke.py k6``: the build, then K6's phase alone."""
+def check_k7(card: str) -> dict:
+    """K7 (ops/dropout.py) at the dropout of each graphed training cell
+    (SHAPES_K7), bfloat16 at rate 0.3 from a hashed step seed: y and dx
+    against the ATen chain it replaced (the plain version on the card, and
+    autograd of it) bit for bit, then forward and backward timed warm from
+    CUDA graph replays (``graph_ms``) beside the chain's forward and its
+    forward and backward (library_ms). The bound reads x and writes y
+    forward, reads g and writes dx backward: 4 + 4 B an element. Returns,
+    per kernel, the end2end head's numbers and each shape's."""
+    from hdenseunet_tpu_torch.models import layers as L
+    from hdenseunet_tpu_torch.ops import dropout as K
+
+    seed, rate = L.Ctx(SEED, device="cuda").seed, 0.3
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    shapes = {}
+    for label, shape in SHAPES_K7:
+        fmt = {4: torch.channels_last, 5: torch.channels_last_3d}[len(shape)]
+        x, g = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16).contiguous(memory_format=fmt)
+                for _ in range(2))
+        y = K.dropout_forward(x, seed, rate)
+        dx = K.dropout_backward(g, seed, rate, 0, x.stride())
+        xr = x.detach().requires_grad_()
+        want = K.dropout_reference(xr, seed, rate)
+        (want_dx,) = torch.autograd.grad(want, xr, g)
+        assert torch.equal(y.view(torch.int16), want.view(torch.int16)), f"K7 y at {label}"
+        assert torch.equal(dx.view(torch.int16), want_dx.view(torch.int16)), f"K7 dx at {label}"
+        kept = float((y != 0).float().mean())
+        del y, dx, want, want_dx
+        fwd = graph_ms(lambda: K.dropout_forward(x, seed, rate))
+        bwd = graph_ms(lambda: K.dropout_backward(g, seed, rate, 0, x.stride()))
+        aten_fwd = graph_ms(lambda: K.dropout_reference(x, seed, rate))
+        aten_both = graph_ms(lambda: torch.autograd.grad(K.dropout_reference(xr, seed, rate), xr, g))
+        bound = x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        shapes[label] = dict(elements=x.numel(), fwd=fwd, bwd=bwd, aten_fwd=aten_fwd,
+                             aten_bwd=aten_both - aten_fwd, bound=bound)
+        print(
+            f"K7 {label} {x.numel():,} bf16 rate {rate}: card {fwd:.4f} + {bwd:.4f} = {fwd + bwd:.4f} ms, "
+            f"bound {2 * bound:.4f} ms ({100 * 2 * bound / (fwd + bwd):.1f} %), ATen chain (library_ms) "
+            f"{aten_fwd:.4f} + {aten_both - aten_fwd:.4f} = {aten_both:.4f} ms; y and dx the chain's bits, "
+            f"kept {kept:.5f}; graph replays [{card}]"
+        )
+        del x, g, xr
+        torch.cuda.empty_cache()
+    x = torch.randn((10, 64, 56, 56), device="cuda").to(torch.bfloat16)
+    per_call = {"dropout_forward": kernels_per_call(lambda: K.dropout_forward(x, seed, rate)),
+                "dropout_backward": kernels_per_call(lambda: K.dropout_backward(x, seed, rate, 0, x.stride()))}
+    head = shapes[SHAPES_K7[0][0]]
+    return {
+        name: dict(ms=head[d], library_ms=head[f"aten_{d}"], bound_ms=head["bound"], bound_by="bytes",
+                   kernels_per_call=per_call[name], shapes=shapes)
+        for name, d in (("dropout_forward", "fwd"), ("dropout_backward", "bwd"))
+    }
+
+
+def phase_main(name: str, check) -> None:
+    """``python3 chip_smoke.py <name>``: the build, then that phase alone."""
     if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke k6: torch.cuda.is_available() is false; this script needs a card")
+        raise SystemExit(f"chip_smoke {name}: torch.cuda.is_available() is false; this script needs a card")
     from hdenseunet_tpu_torch.ops import build
 
     card = card_line()
@@ -942,8 +1022,8 @@ def k6_main() -> None:
     so, seconds = build.build()
     print(f"build: {so.name} in {seconds:.1f} s")
     t0 = time.perf_counter()
-    print(json.dumps({"k6": check_k6(card)}))
-    print(f"k6 phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    print(json.dumps({name: check(card)}))
+    print(f"{name} phase: {time.perf_counter() - t0:.1f} s [{card}]")
 
 
 def wce_case(n: int, dtype, gen, *, depth: int | None):
@@ -1888,7 +1968,7 @@ def variants_path(card: str) -> dict:
     times, peak = timed_steps(legacy_step)
     launches = paths["variants_legacy_train"] = read_counts()
     # the warm-up and 2 timed steps
-    assert launches == only(wce_forward=3, wce_backward=3, **scaled(k6_per_step("2d"), 3)), launches
+    assert launches == only(wce_forward=3, wce_backward=3, **scaled(live_per_step("2d"), 3)), launches
     assert all(bool(torch.isfinite(t.grad).all()) for t in legacy.parameters() if t.grad is not None)
     print(f"variants: legacy DenseUNet-167 train step (live BN, remat, weighted CE) batch 8 of 224x224 "
           f"bf16: {[round(t, 2) for t in times]} ms, peak {peak:.2f} GiB, launches "
@@ -1919,7 +1999,7 @@ def variants_path(card: str) -> dict:
     times, peak = timed_steps(dilated_step)
     launches = paths["variants_dilated"] = read_counts()
     # inference runs no kernel of the port's on this network; training, K6 (3 steps)
-    assert launches == only(**scaled(k6_per_step("dilated"), 3)), launches
+    assert launches == only(**scaled(live_per_step("dilated"), 3)), launches
     print(f"variants: DilatedResNet (64, 128, 256, 512) bf16 batch 2 of 224x224x8: forward "
           f"{fwd_ms:.3f} ms, {flops / 1e12:.4f} TFLOP ({flops / fwd_ms / 1e9:.1f} TFLOP/s), peak "
           f"{fwd_peak:.2f} GiB; train step (live BN, cross-entropy) {[round(t, 2) for t in times]} ms, "
@@ -2638,9 +2718,9 @@ def train_path(
     steps = TRAIN_STEPS
     if arch == "end2end":
         want = only(affine_relu=(BSR_2D + REMAT_2D) * steps, affine_relu_backward=BSR_2D * steps,
-                    wce_forward=steps, wce_backward=steps, **scaled(k6_per_step(arch), steps))
+                    wce_forward=steps, wce_backward=steps, **scaled(live_per_step(arch), steps))
     else:
-        want = only(wce_forward=steps, wce_backward=steps, **scaled(k6_per_step(arch), steps))
+        want = only(wce_forward=steps, wce_backward=steps, **scaled(live_per_step(arch), steps))
     assert launches == want, (arch, launches, want)
     ms = (end - asked[1]) / (steps - 1) * 1e3
     slices = cfg.train.batch * (cfg.model.input_cols if arch != "2d" else 1)
@@ -2668,7 +2748,7 @@ def train_convs_path(card: str, full: dict) -> dict:
     phase 7's bars for a step against another. Returns the launch counts."""
     steps = TRAIN_STEPS
     per_step = dict(affine_relu=BSR_2D + REMAT_2D, affine_relu_backward=BSR_2D, wce_forward=1, wce_backward=1,
-                    **k6_per_step("end2end"))
+                    **live_per_step("end2end"))
     convs = train_path(card, "end2end", "convs")
     again = train_path(card, "end2end")
     assert convs["launches"] == full["launches"] == only(**{k: n * steps for k, n in per_step.items()}), (
@@ -2697,15 +2777,16 @@ def train_convs_path(card: str, full: dict) -> dict:
 @contextlib.contextmanager
 def first_calls():
     """While open, keep the arguments and outputs of the first call of each
-    of K1, K1's backward and K2's forward and backward: the module's
+    of K1, K1's backward, K2's and K7's forward and backward: the module's
     wrappers are swapped for recorders that call them (the launch counts
     carry over). Tensors made inside a CUDA graph's capture stay held, so
     after a replay they hold that replay's values."""
-    from hdenseunet_tpu_torch.ops import fused_affine as K, wce as W
+    from hdenseunet_tpu_torch.ops import dropout as D, fused_affine as K, wce as W
 
     kept, swapped = {}, []
     for module, name in ((K, "affine_relu"), (K, "affine_relu_backward"),
-                         (W, "wce_forward"), (W, "wce_backward")):
+                         (W, "wce_forward"), (W, "wce_backward"),
+                         (D, "dropout_forward"), (D, "dropout_backward")):
         wrapped = getattr(module, name)
 
         def recorder(*args, _fn=wrapped, _name=name, **kwargs):
@@ -2727,8 +2808,9 @@ def first_calls():
 def hold_graphed_calls(kept: dict) -> dict:
     """Each kernel's output at its first call inside the captured step, as
     the last replay left it, against its plain version on the same inputs
-    (phase 3's bars). Returns each kernel's largest error."""
-    from hdenseunet_tpu_torch.ops import fused_affine as K
+    (phase 3's bars; K7's: the same bits). Returns each kernel's largest
+    error (K7's: elements that differ)."""
+    from hdenseunet_tpu_torch.ops import dropout as D, fused_affine as K
 
     errors = {}
     if "affine_relu" in kept:
@@ -2744,6 +2826,13 @@ def hold_graphed_calls(kept: dict) -> dict:
     errors["wce_forward"], errors["wce_backward"] = k2_errors(
         loss, cnt, d, logits, labels, mask, w, g, "graphed K2")
     assert float(cnt_b) == float(cnt)
+    (x, seed, rate, offset), _, y = kept["dropout_forward"]
+    (g, _, _, _, stride), _, dx = kept["dropout_backward"]
+    for name, got, want in (("dropout_forward", y, D.dropout_reference(x, seed, rate, offset)),
+                            ("dropout_backward", dx, D.dropout_backward_reference(g, seed, rate, offset, stride))):
+        bits = torch.int16 if got.element_size() == 2 else torch.int32
+        errors[name] = int((got.view(bits) != want.view(bits)).sum())
+        assert errors[name] == 0, f"graphed K7 ({name}): {errors[name]} elements differ from the plain version"
     return errors
 
 
@@ -2893,8 +2982,8 @@ def graph_path(card: str) -> dict:
     steps' as the captured launches times the replays."""
     per_step = {
         "end2end": dict(affine_relu=BSR_2D + REMAT_2D, affine_relu_backward=BSR_2D,
-                        wce_forward=1, wce_backward=1, **k6_per_step("end2end")),
-        "2d": dict(wce_forward=1, wce_backward=1, **k6_per_step("2d")),
+                        wce_forward=1, wce_backward=1, **live_per_step("end2end")),
+        "2d": dict(wce_forward=1, wce_backward=1, **live_per_step("2d")),
     }
     replays = GRAPH_STEPS - GRAPH_K
     paths = {}
@@ -3140,7 +3229,7 @@ def cli_path(card: str, synthetic_ms: dict, per_batch: dict) -> dict:
         launches["cli_train_2d"], timing["2d"] = read_counts(), (step_ms(marks), marks)
         assert state2d.step == CLI_STEPS and len(P.layers(state2d.model)) == LAYERS_2D
         assert launches["cli_train_2d"] == only(wce_forward=CLI_STEPS, wce_backward=CLI_STEPS,
-                                                **scaled(k6_per_step("2d"), CLI_STEPS)), launches["cli_train_2d"]
+                                                **scaled(live_per_step("2d"), CLI_STEPS)), launches["cli_train_2d"]
         del state2d
 
         with cli_clock() as marks:
@@ -3152,7 +3241,7 @@ def cli_path(card: str, synthetic_ms: dict, per_batch: dict) -> dict:
         m = re.search(r"warm start: (\d+) layers loaded, (\d+) skipped, (\d+) shape-mismatched", text)
         assert m and tuple(map(int, m.groups())) == (LAYERS_2D, 0, 0), text
         per_step = {"affine_relu": BSR_2D + REMAT_2D, "affine_relu_backward": BSR_2D,
-                    "wce_forward": 1, "wce_backward": 1, **k6_per_step("end2end")}
+                    "wce_forward": 1, "wce_backward": 1, **live_per_step("end2end")}
         assert launches["cli_train_end2end"] == only(**{k: n * CLI_STEPS for k, n in per_step.items()})
         assert C.Checkpointer(cke).all_steps() == [2, CLI_STEPS] and state.step == CLI_STEPS
         saved = C.snapshot(state)
@@ -3598,10 +3687,10 @@ def dp_two_ranks(card: str, one_steps: dict, exact_steps: dict, serve_ref: dict)
                   f"{bf16['loss']:.7g} against {one_steps[arch]['loss']:.7g}, worst update error {worst16:.3g} "
                   f"of its tensor's update norm, {len(bad16)} tensors past phase 7's bars: "
                   f"{[(b[0], round(b[1], 3)) if isinstance(b[1], float) else b for b in bad16[:5]]} [{card}]")
-            # one process's launches a step, K6's included
+            # one process's launches a step, K6's and K7's included
             per_step = {k: n // DP_STEPS for k, n in runs[0]["launches"].items()}
             want = exact_steps[arch]["launches"]
-            assert all(want[k] for k in K6_NAMES), want
+            assert all(want[k] for k in K6_NAMES + K7_NAMES), want
             if per_step != want or exact["launches"] != want:
                 failed.append((arch, per_step, exact["launches"], want))
             launches[f"train_dp_w2_{arch}"] = runs[0]["launches"]
@@ -3722,7 +3811,7 @@ def cli_train_dp(card: str) -> dict:
         child = json.loads(counts.read_text())
         # one rank: live BN takes K6
         per_step = {"affine_relu": BSR_2D + REMAT_2D, "affine_relu_backward": BSR_2D,
-                    "wce_forward": 1, "wce_backward": 1, **k6_per_step("end2end")}
+                    "wce_forward": 1, "wce_backward": 1, **live_per_step("end2end")}
         assert (child["world"], child["backend"], child["step"]) == (1, "nccl", 2), child
         assert child["launches"] == only(**{k: 2 * n for k, n in per_step.items()}), child["launches"]
         saved = C.load(root / "ck" / "step-2.pt")
@@ -3806,7 +3895,7 @@ def bench_path(card: str) -> dict:
     # the first step, the chained loops, and each endpoint's eager call and capture
     steps = (1 + env["BENCH_TRAIN_REPS"] * env["BENCH_TRAIN_STEPS"]
              + env["BENCH_TRAIN_K_SMALL"] + 1 + env["BENCH_TRAIN_K_BIG"] + 1)
-    assert train == only(wce_forward=steps, wce_backward=steps, **scaled(k6_per_step("2d"), steps)), (train, steps)
+    assert train == only(wce_forward=steps, wce_backward=steps, **scaled(live_per_step("2d"), steps)), (train, steps)
     print(
         f"bench: bench_torch.main under {BENCH_ENV}: exit {status}, {len(lines)} cumulative lines, "
         f"{seconds:.1f} s; {len(live)} scorings over {sum(live)} live window batches, {len(digests)} "
@@ -3850,6 +3939,8 @@ def main() -> None:
     lap("k2")
     k6 = check_k6(card)
     lap("k6")
+    k7 = check_k7(card)
+    lap("k7")
     check_back_to_back(card)
     lap("back_to_back")
     serve = serve_path(card)
@@ -3941,9 +4032,12 @@ def main() -> None:
         # no Pallas body: XLA fuses the live BN, Scale and ReLU
         ("bn_live_forward", "bn_live.cu", "models/layers.py:142", k6["bn_live_forward"]),
         ("bn_live_backward", "bn_live.cu", "models/layers.py:142", k6["bn_live_backward"]),
+        # no Pallas body: XLA fuses the dropout's hash and scaling
+        ("dropout_forward", "dropout.cu", "models/layers.py:291", k7["dropout_forward"]),
+        ("dropout_backward", "dropout.cu", "models/layers.py:291", k7["dropout_backward"]),
     ):
         main_path = {"cc.cu": "serve_dpp", "score.cu": "serve", "affine_gemm.cu": "serve",
-                     "bn_live.cu": "train_2d"}.get(source, "train_end2end")
+                     "bn_live.cu": "train_2d", "dropout.cu": "train_2d"}.get(source, "train_end2end")
         per = {"launches_per_volume": paths[main_path][name] // 2} if main_path.startswith("serve") else {
             "launches_per_step": paths[main_path][name] // TRAIN_STEPS}
         kernels.append({
@@ -3955,8 +4049,8 @@ def main() -> None:
             **per,
             "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             **numbers,
-            # K5's product alone is one cuDNN call; K6's, the ATen chain it
-            # replaced; nothing else has one
+            # K5's product alone is one cuDNN call; K6's and K7's, the ATen
+            # chains they replaced; nothing else has one
             "library_ms": numbers.get("library_ms"),
         })
     print(json.dumps({"kernels": kernels}))
@@ -3976,6 +4070,8 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["cli-rank"]:
         cli_rank(sys.argv[2], sys.argv[3:])
     elif sys.argv[1:2] == ["k6"]:
-        k6_main()
+        phase_main("k6", check_k6)
+    elif sys.argv[1:2] == ["k7"]:
+        phase_main("k7", check_k7)
     else:
         main()

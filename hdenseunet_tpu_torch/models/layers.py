@@ -55,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.mesh import axis_group, axis_rank, axis_size
 from ..ops import affine_gemm as K5
 from ..ops.bn_live import BNLive
+from ..ops.dropout import Dropout
 from ..ops.fused_affine import AffineReLU, fold_bn_scale
 
 _FORMATS = {4: torch.channels_last, 5: torch.channels_last_3d}
@@ -63,7 +64,6 @@ _FORMATS = {4: torch.channels_last, 5: torch.channels_last_3d}
 # exact on the CPU and on the card alike
 _M32 = 0xFFFFFFFF
 _MIX = (0x7FEB352D, 0x6A09E667)
-_KEEP_BITS = 24  # a mask compares the hash's top 24 bits with keep * 2^24
 
 
 def hash32(x: torch.Tensor) -> torch.Tensor:
@@ -655,7 +655,9 @@ def dropout(x, rate: float, seed: torch.Tensor | int | None = None, *, shard=Non
     Element i of x's memory (the batch axis outermost) is kept when the top
     24 bits of ``hash32(seed mod 2^32 ^ i)`` fall below ``(1 - rate) *
     2^24``: the mask is computed on the device from the seed alone, the
-    same in eager steps and in a captured graph, remat on or off.
+    same in eager steps and in a captured graph, remat on or off. K7
+    (``ops/dropout.Dropout``) draws it again in the backward and keeps
+    none.
 
     ``shard`` (rank, ranks): x is rank's block of rows of a batch split over
     ``ranks`` processes, and i counts from the rank's first element in the
@@ -663,7 +665,6 @@ def dropout(x, rate: float, seed: torch.Tensor | int | None = None, *, shard=Non
     only those are computed."""
     if seed is None or rate <= 0.0:
         return x
-    keep = 1.0 - rate
     n = x.numel()
     if not _dense(x):
         raise ValueError("dropout needs x dense in memory")
@@ -675,11 +676,7 @@ def dropout(x, rate: float, seed: torch.Tensor | int | None = None, *, shard=Non
         offset = rank * n
     if offset + n > 2**32:
         raise ValueError("dropout indexes at most 2^32 elements")
-    seed = torch.as_tensor(seed, dtype=torch.int64, device=x.device) & _M32
-    h = hash32(torch.arange(offset, offset + n, dtype=torch.int64, device=x.device).bitwise_xor_(seed))
-    kept = (h >> (32 - _KEEP_BITS)) < round(keep * 2**_KEEP_BITS)
-    mask = kept.to(x.dtype).as_strided(x.shape, x.stride())
-    return x / keep * mask
+    return Dropout.apply(x, torch.as_tensor(seed, dtype=torch.int64, device=x.device), rate, offset)
 
 
 def _dense(x) -> bool:

@@ -1,5 +1,5 @@
 """The benchmark's readers of the program's spans and counters
-(``hdu_bench/recorder.py`` and ten files in ``hdu_bench/metrics/``) on
+(``hdu_bench/recorder.py`` and twelve files in ``hdu_bench/metrics/``) on
 made-up snapshots: their values, and None wherever there is nothing to
 read."""
 from __future__ import annotations
@@ -23,13 +23,14 @@ SNAPSHOT = {
         "backward": dict(count=12, total_s=2.4, self_s=2.4, syncs=0),
         "put": dict(count=12, total_s=0.1, self_s=0.1, syncs=3),
     },
-    "counts": {"window_batches": 27, "stacks_2d": 540, "mask_box_voxels": 52297596, "bn_live": 966},
+    "counts": {"window_batches": 27, "stacks_2d": 540, "mask_box_voxels": 52297596, "bn_live": 966,
+               "dropout": 3},
 }
 WANT = {  # over 3 traced units
     "mask_extent_s.serve": 1.1, "scoring_s.serve": 0.9, "syncs.serve": 22.0,
     "forward_ms.eager": 400.0, "backward_ms.eager": 800.0, "syncs.eager": 22.0, "syncs.graphed": 22.0,
     "window_batches.serve": 9.0, "stacks_2d.serve": 180.0, "mask_box_voxels.serve": 17432532.0,
-    "bn_live_calls.eager": 322.0,
+    "bn_live_calls.eager": 322.0, "dropout_calls.eager": 1.0,
 }
 
 

@@ -303,9 +303,10 @@ def test_compute_seconds_is_the_slope(tiny_model, monkeypatch):
 def test_train_step_and_multistep_spans(tmp_path):
     """One train_step and one MultiStep call of K = 2 on the CPU: put once
     a call, forward, backward and bn_merge once a step, optimizer twice
-    (zero_grad, then the update); the CPU replays no graph. Training's one
-    counter is ``bn_live``, a K6 call: the tiny 2D network's 26 live BN
-    sites and the 16 of them that remat reruns, a step."""
+    (zero_grad, then the update); the CPU replays no graph. Training's
+    counters are ``bn_live``, a K6 call: the tiny 2D network's 26 live BN
+    sites and the 16 of them that remat reruns, a step; and ``dropout``, a
+    K7 call: the decoder's one a step."""
     from hdenseunet_tpu_torch.data.sampler import synthetic_batches
     from hdenseunet_tpu_torch.train import trainer as T
 
@@ -322,7 +323,7 @@ def test_train_step_and_multistep_spans(tmp_path):
     assert all(torch.isfinite(v).all() for v in losses)
     assert {name: s["count"] for name, s in snap["spans"].items()} == dict(
         put=2, forward=3, backward=3, optimizer=6, bn_merge=3)
-    assert snap["counts"] == {"bn_live": 3 * (26 + 16)}
+    assert snap["counts"] == {"bn_live": 3 * (26 + 16), "dropout": 3}
     for scope in ("put", "forward", "backward", "optimizer", "bn_merge"):
         assert f'"{scope}"' in text, scope
 
